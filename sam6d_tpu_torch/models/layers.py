@@ -1,0 +1,79 @@
+"""Small layers shared by the port's modules.
+
+Parameters are stored in float32, as the JAX package keeps them; each
+layer casts to its compute dtype at use (a no-op once the weights have
+been cast, see `cast_dense_weights`).  The norms compute their
+statistics in float32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Dense(nn.Linear):
+    """nn.Linear that computes in `dtype` (flax nn.Dense(dtype=...))."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
+                 dtype=torch.float32):
+        super().__init__(in_dim, out_dim, bias=bias)
+        self.dtype = dtype
+
+    def reset_parameters(self):
+        # Deterministic placeholder: weights come from a state dict or
+        # from params.init_random_ with an explicit generator.
+        nn.init.zeros_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """Float32 LayerNorm with flax's default eps 1e-6, output in `dtype`."""
+
+    def __init__(self, dim: int, dtype=torch.float32, eps: float = 1e-6):
+        super().__init__(dim, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over the last axis with running statistics
+    (flax nn.BatchNorm(use_running_average=True), eps 1e-5)."""
+
+    def __init__(self, dim: int, dtype=torch.float32, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+        self.eps = eps
+        self.dtype = dtype
+
+    def forward(self, x):
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean) * mul + self.bias
+        return y.to(self.dtype)
+
+
+def cast_dense_weights(module: nn.Module) -> nn.Module:
+    """Store every Dense layer's weights in its compute dtype, so the
+    forward does not cast them at each call (same rounding either way)."""
+    for m in module.modules():
+        if isinstance(m, Dense):
+            m.to(m.dtype)
+    return module
+
+
+def f32_matmul(a, b):
+    """a @ b with float32 inputs and output: the products of compute-dtype
+    values accumulated in float32 (preferred_element_type=float32)."""
+    return torch.matmul(a.float(), b.float())

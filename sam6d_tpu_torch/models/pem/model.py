@@ -1,0 +1,135 @@
+"""PEM: the two-stage background-token point-matching pose estimator,
+serving path.
+
+Counterpart of `sam6d_tpu/models/pem/model.py`: `get_obj_feats`
+(template onboarding), `make_template_bank` (every template-static
+quantity, once per object) and `forward_with_bank` (per request).
+Submodule names follow the JAX parameter tree, so `params.py` carries
+JAX weights across by name.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from sam6d_tpu_torch.config import PEMConfig
+from sam6d_tpu_torch.device import resolve_device
+from sam6d_tpu_torch.models.pem.feature_extraction import ViTEncoder
+from sam6d_tpu_torch.models.pem.geo_embedding import GeometricStructureEmbedding
+from sam6d_tpu_torch.models.pem.matching import (
+    CoarsePointMatching,
+    FinePointMatching,
+)
+from sam6d_tpu_torch.ops.distance_field import build_min_dist_field
+from sam6d_tpu_torch.ops.fps import sample_pts_feats
+
+BG_POINT = 100.0  # the bg token's coordinate (reference model:30)
+
+
+def _radius(po):
+    return torch.linalg.vector_norm(po, dim=2).amax(dim=1)
+
+
+class PEM(nn.Module):
+    def __init__(self, cfg: PEMConfig, dtype=torch.float32, device="cuda"):
+        """Built on `device` (the card unless the caller asks for the
+        CPU), with zero weights: load a state dict or call
+        `params.init_random_`."""
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        self.feature_extraction = ViTEncoder(cfg.feature_extraction,
+                                             cfg.fine_npoint, dtype)
+        self.geo_embedding = GeometricStructureEmbedding(cfg.geo_embedding,
+                                                         dtype)
+        self.coarse_point_matching = CoarsePointMatching(
+            cfg.coarse_point_matching, dtype)
+        self.fine_point_matching = FinePointMatching(
+            cfg.fine_point_matching, dtype)
+        self.to(resolve_device(device))
+
+    def _with_bg(self, sparse):
+        bg = torch.full((sparse.shape[0], 1, 3), BG_POINT,
+                        dtype=sparse.dtype, device=sparse.device)
+        return torch.cat([bg, sparse], dim=1)
+
+    @torch.inference_mode()
+    def get_obj_feats(self, tem_rgb, tem_pts, tem_choose):
+        """Template onboarding: per-view ViT features -> FPS'd
+        (1, fine_npoint, 3) cloud and (1, fine_npoint, C) features."""
+        return self.feature_extraction.get_obj_feats(tem_rgb, tem_pts,
+                                                     tem_choose)
+
+    @torch.inference_mode()
+    def make_template_bank(self, dense_po, dense_fo):
+        """dense_po (1, N, 3) FPS'd template cloud (metric), dense_fo
+        (1, N, C) -> dict bank of template-static tensors (leading dim 1).
+        The coarse-rescore distance field is built over the template
+        cloud."""
+        radius = _radius(dense_po)
+        denom = radius[:, None, None] + 1e-6
+        dense_po_n = dense_po / denom
+        sparse_po, sparse_fo, fps_idx_o = sample_pts_feats(
+            dense_po_n, dense_fo, self.cfg.coarse_npoint, return_index=True
+        )
+        geo_o = self.geo_embedding(self._with_bg(sparse_po))
+        fpm = self.fine_point_matching
+        pe_o = fpm.compute_pe(dense_po_n)
+        fine_f2 = fpm.compute_f2_init(dense_fo.to(self.dtype), pe_o)
+        return {
+            "radius": radius,
+            "dense_po_n": dense_po_n,
+            "dense_fo": dense_fo,
+            "sparse_po": sparse_po,
+            "sparse_fo": sparse_fo,
+            "fps_idx_o": fps_idx_o,
+            "geo_o": geo_o,
+            "pe_o": pe_o,
+            "fine_f2": fine_f2,
+            "dist_field": build_min_dist_field(dense_po_n.float()),
+        }
+
+    @torch.inference_mode()
+    def forward_with_bank(self, pts, rgb, rgb_choose, model_pts, bank,
+                          generator=None, uniforms=None):
+        """Per-request forward.
+
+        pts (B, N, 3) observed cloud (metric), rgb (B, S, S, 3),
+        rgb_choose (B, N), model_pts (B, M, 3).  uniforms: optional
+        (u1, u2), each (B, 3 * nproposal1, 1), for the coarse hypothesis
+        draws; else drawn from `generator`.
+        """
+        B = pts.shape[0]
+
+        def tile(x):
+            return x.expand((B,) + x.shape[1:])
+
+        radius = bank["radius"].expand(B)
+        dense_pm = pts / (radius[:, None, None] + 1e-6)
+        dense_fm = self.feature_extraction.get_img_feats(rgb, rgb_choose)
+        sparse_pm, sparse_fm, fps_idx_m = sample_pts_feats(
+            dense_pm.contiguous(), dense_fm, self.cfg.coarse_npoint,
+            return_index=True,
+        )
+        geo_m = self.geo_embedding(self._with_bg(sparse_pm))
+        geo_o = tile(bank["geo_o"])
+        init_R, init_t = self.coarse_point_matching(
+            sparse_pm, sparse_fm, geo_m, tile(bank["sparse_po"]),
+            tile(bank["sparse_fo"]), geo_o, radius, model_pts,
+            dist_field=bank["dist_field"], uniforms=uniforms,
+            generator=generator,
+        )
+        pred_R, pred_t, score = self.fine_point_matching(
+            dense_pm, dense_fm, geo_m, fps_idx_m, tile(bank["dense_po_n"]),
+            geo_o, tile(bank["fps_idx_o"]), radius, model_pts, init_R, init_t,
+            f2_init=tile(bank["fine_f2"]),
+        )
+        return {
+            "pred_R": pred_R,
+            "pred_t": pred_t,
+            "pred_pose_score": score,
+            "init_R": init_R,
+            "init_t": init_t,
+            "radius": radius,
+        }
