@@ -9,17 +9,24 @@ process per source, all at once), then:
 1. environment: the card's name and power limit, torch and CUDA
    versions, compute capability 9.0, the kernel build;
 2. every kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it, with CUDA-event timings (kernel and
-   plain version in turns, medians), plus the tiny-config template bank
-   on the card against the same bank computed on the CPU;
+   shapes the serving paths give it, with CUDA-event timings (kernel and
+   plain version in turns, medians) and, where one PyTorch call computes
+   the same function, that call's time as a yardstick; plus the
+   tiny-config PEM template bank and a tiny-config ISM frame on the card
+   against the same computed on the CPU;
 3. the PEM serving slice at full width (default_pem_config, bfloat16,
    random weights from a seed): onboarding of 42 views x 5000 points
    (FPS 210k -> 2048), the template bank, three 1-instance requests and
    one 5-instance request (bucket 8).  The launch counters are zeroed
-   just before and read just after; every kernel must have run.
-   One more 1-instance request then runs under torch.profiler: the
-   device-busy share of its wall time and the kernels that take the
-   most device time.
+   just before and read just after; every kernel of the path must have
+   run.  One more 1-instance request then runs under torch.profiler;
+4. the ISM serving slice at full width (default_ism_config: SAM ViT-H at
+   1024^2, the 32 x 32 AMG grid, DINOv2-L at 224^2, bfloat16, random
+   weights from a seed): onboarding of one object's 42 template views,
+   then three 480 x 640 frames of a synthetic scene, one at the default
+   thresholds and two with the IoU, stability and confidence thresholds
+   opened.  Counters zeroed before and read after, as in phase 3; one
+   more frame runs under torch.profiler.
 
 Any failure exits non-zero.  The last lines are the nvidia-smi name and
 power limit, {"kernels": [...]}, and
@@ -83,10 +90,17 @@ def time_in_turns(fns: dict, reps: int, warmup: int = 1):
     return {n: statistics.median(v) for n, v in times.items()}
 
 
+def all_kernels():
+    from sam6d_tpu_torch.ops import decode_tail, flash_rpe, fps, geo_embed
+
+    return [fps.KERNEL, geo_embed.KERNEL, flash_rpe.KERNEL_RPE,
+            flash_rpe.KERNEL_PLAIN, decode_tail.KERNEL]
+
+
 def phase_environment():
     import torch
 
-    from sam6d_tpu_torch.ops import _kernels, fps, geo_embed
+    from sam6d_tpu_torch.ops import _kernels
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -101,7 +115,7 @@ def phase_environment():
     log(f"device 0: {name}, compute capability {cc}, "
         f"{torch.cuda.device_count()} visible")
     require(cc == (9, 0), f"needs compute capability 9.0 (Hopper), got {cc}")
-    kernels = [fps.KERNEL, geo_embed.KERNEL]
+    kernels = all_kernels()
     t0 = time.perf_counter()
     _kernels.build_all(kernels)
     build_s = time.perf_counter() - t0
@@ -110,7 +124,8 @@ def phase_environment():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {k.name}: {line.strip()}")
-    log(f"built {len(kernels)} kernels in {build_s:.1f} s")
+    log(f"built {len(kernels)} kernels from "
+        f"{len({k.source for k in kernels})} sources in {build_s:.1f} s")
     return smi, name, build_s
 
 
@@ -334,24 +349,353 @@ def phase_slice(dev):
         request_ms=req_ms, request_launches=req_launches, launches=launches)
 
 
-def phase_profile(runner, request):
-    """torch.profiler over one 1-instance request after two warm ones:
-    device-busy share of the request's wall time and the kernels that
-    take the most device time."""
+def check_attention(dev):
+    """K4 at the SAM encoder's windowed (400, 196, 80) and global
+    (16, 4096, 80) shapes and K5 at the DINOv2-L shapes (128 and 4096
+    batch-heads of 257 x 64), bfloat16.  Yardstick: one call of
+    F.scaled_dot_product_attention on the same inputs (for K4 with the
+    dense (BH, N, N) rel-pos bias as attn_mask, built beforehand and not
+    timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sam6d_tpu_torch.ops import flash_rpe as fr
+
+    # bf16 output: the plain version rounds the probabilities to bf16
+    # before the product with v (0.4% each) and both round the output,
+    # so they may land two bf16 steps apart.
+    atol, rtol = 2e-2, 2e-2
+    rows = {"rpe": [], "plain": []}
+    cases = (("rpe", 400, 14, 14, 80, 10), ("rpe", 16, 64, 64, 80, 5),
+             ("plain", 128, 1, 257, 64, 10), ("plain", 4096, 1, 257, 64, 5))
+    for kind, BH, h, w, d, reps in cases:
+        N = h * w
+        g = torch.Generator(device=dev).manual_seed(BH + N)
+        q, k = (torch.randn(BH, N, d, generator=g, device=dev) * 0.3
+                for _ in range(2))
+        v = torch.randn(BH, N, d, generator=g, device=dev)
+        q, k, v = (t.bfloat16() for t in (q, k, v))
+        # SDPA takes (batch, heads, L, E): the batch-heads as heads.
+        q4, k4, v4 = (t[None] for t in (q, k, v))
+        if kind == "rpe":
+            rh = (torch.randn(2 * h - 1, d, generator=g, device=dev)
+                  * 0.1).bfloat16()
+            rw = (torch.randn(2 * w - 1, d, generator=g, device=dev)
+                  * 0.1).bfloat16()
+            kern = lambda: fr.flash_rpe_attention_cuda(q, k, v, rh, rw,
+                                                       (h, w))
+            plain = lambda: fr.rpe_attention_plain(q, k, v, rh, rw, (h, w))
+            qrh, qrw = fr.rel_pos_tables(q, rh, rw, (h, w))
+            mask = (qrh[..., :, None] + qrw[..., None, :]).reshape(
+                1, BH, N, N).bfloat16()
+            lib = lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask)
+            # q k^T and P v, the bias tables' two products, the bias add.
+            flops = 4 * BH * N * N * d + 2 * BH * N * d * (2 * h + 2 * w - 2) \
+                + 2 * BH * N * N
+            nbytes = 4 * BH * N * d * 2 + (2 * h + 2 * w - 2) * d * 2
+            shape = f"({BH},{N},{d}) bf16, grid {h}x{w}"
+        else:
+            kern = lambda: fr.flash_attention_cuda(q, k, v)
+            plain = lambda: fr.attention_plain(q, k, v)
+            lib = lambda: F.scaled_dot_product_attention(q4, k4, v4)
+            flops = 4 * BH * N * N * d
+            nbytes = 4 * BH * N * d * 2
+            shape = f"({BH},{N},{d}) bf16"
+        got, want = kern().float(), plain().float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(bool(((got - want).abs() <= atol + rtol * want.abs()).all()),
+                f"flash {kind} {shape}: max abs err {err}")
+        t = time_in_turns({"kernel": kern, "plain": plain, "library": lib},
+                          reps)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        rows[kind].append(dict(shape=shape, max_abs_err=err, ms=t["kernel"],
+                               plain_ms=t["plain"], library_ms=t["library"],
+                               bound_ms=b_ms, bound_by=b_by))
+        log(f"flash_{kind} {rows[kind][-1]}")
+        del got, want
+    return rows["rpe"], rows["plain"]
+
+
+def check_decode_tail(dev):
+    """K6 at the AMG's full shape, keys (1024, 4096, 256) bf16, and at
+    P = 64, where the plain version (which materializes every stage,
+    several GB at P = 1024) is timed and compared.  No PyTorch call
+    computes these statistics."""
+    import torch
+
+    from sam6d_tpu_torch.ops import decode_tail as dt
+
+    def inputs(P, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def r(*shape, s=1.0):
+            return torch.randn(*shape, generator=g, device=dev) * s
+
+        return dict(keys=r(P, 4096, 256, s=0.5).bfloat16(),
+                    hyper=r(P, 3, 32, s=0.5), w1=r(256, 256, s=0.05),
+                    b1=r(256, s=0.05), ln_scale=1.0 + r(256, s=0.1),
+                    ln_bias=r(256, s=0.1), w2=r(64, 128, s=0.1),
+                    b2=r(128, s=0.05))
+
+    kw = dict(mask_threshold=0.0, stability_offset=1.0)
+    rows = []
+    for P, reps in ((64, 5), (1024, 5)):
+        inp, err = inputs(P, P), None
+        kern = lambda: dt.decode_tail_stats_cuda(**inp, **kw)
+        fns = {"kernel": kern}
+        if P == 64:
+            plain = lambda: dt.decode_tail_stats_plain(**inp, **kw)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            # Counts 8 and boxes 4 px, as the JAX package holds its TPU
+            # kernel to its reference: float32 summation order flips
+            # pixels whose logit lies within rounding of a threshold.
+            for rows_, atol in (((0, 1, 6), 8.0), ((2, 3, 4, 5), 4.0)):
+                e = float(diff[:, list(rows_)].max())
+                require(e <= atol, f"decode_tail rows {rows_}: {e} > {atol}")
+            err = float(diff.max())
+            fns["plain"] = plain
+        t = time_in_turns(fns, reps)
+        # Per token: stage 1 (256 x 256), stage 2 (4 x 64 x 128) and the
+        # contraction (4 x 12 x 32) multiply-adds, plus ~10 operations
+        # for each LayerNorm / GELU value (256 + 512); float32.
+        tokens = P * 4096
+        flops = tokens * (2 * (256 * 256 + 4 * 64 * 128 + 4 * 12 * 32)
+                          + 10 * (256 + 512))
+        nbytes = tokens * 256 * 2 + P * (96 + 96) * 4 + (256 * 256 + 64
+                                                         * 128 + 896) * 4
+        b_ms, b_by = bound(nbytes, flops, "float32")
+        rows.append(dict(shape=f"P={P}, keys ({P},4096,256) bf16",
+                         max_abs_err=err, ms=t["kernel"],
+                         plain_ms=t.get("plain"), bound_ms=b_ms,
+                         bound_by=b_by))
+        log(f"decode_tail {rows[-1]}")
+    return rows
+
+
+def tiny_ism(device):
+    """The tiny ISM of the CPU tests (vit_b layout at img 64, DINOv2 at
+    28^2), float32, random weights from a seed, thresholds opened, the
+    fused AMG tail on any device."""
+    import torch
+
+    from sam6d_tpu_torch import config as c
+    from sam6d_tpu_torch.models.ism.detector import ISMDetector
+    from sam6d_tpu_torch.models.ism.dinov2 import DescriptorModel
+    from sam6d_tpu_torch.models.ism.sam.amg import SamAutomaticMaskGenerator
+    from sam6d_tpu_torch.models.ism.sam.model import SAM
+    from sam6d_tpu_torch.params import init_random_
+
+    seg = c.SegmentorConfig(points_per_side=4, points_per_batch=8,
+                            pred_iou_thresh=-1e9, stability_score_thresh=-1e9,
+                            box_nms_thresh=0.95, segmentor_width_size=0,
+                            fused_tail=True)
+    desc = c.DescriptorConfig(image_size=28, patch_size=14, embed_dim=32,
+                              depth=2, num_heads=2)
+    cfg = c.ISMConfig(segmentor=seg, descriptor=desc, confidence_thresh=-1.0)
+    sam = init_random_(SAM("vit_b", 64, encoder_kwargs=dict(
+        embed_dim=32, depth=2, num_heads=2, global_attn_indexes=(1,),
+        window_size=2), device="cpu"), torch.Generator().manual_seed(0))
+    dm = init_random_(DescriptorModel(desc), torch.Generator().manual_seed(1))
+    return ISMDetector(cfg, SamAutomaticMaskGenerator(sam.to(device), seg),
+                       dm, device=device)
+
+
+def check_tiny_ism(dev):
+    """One tiny-config ISM frame on the card (K4, K5, K6) against the same
+    frame on the CPU (their plain versions), fused tail on both."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    tem = dict(template_images=rng.rand(1, 3, 28, 28, 3).astype(np.float32),
+               template_masks=rng.rand(1, 3, 28, 28) > 0.3,
+               template_poses=np.broadcast_to(np.eye(4, dtype=np.float32),
+                                              (3, 4, 4)).copy(),
+               pointcloud=(rng.randn(1, 64, 3) * 0.05).astype(np.float32))
+    image = (rng.rand(64, 64, 3) * 255).astype(np.uint8)
+    depth = np.full((64, 64), 1.5, np.float32)
+    K = np.array([[60.0, 0, 32], [0, 60.0, 32], [0, 0, 1]], np.float32)
+    out = []
+    for device in ("cpu", dev):
+        det = tiny_ism(device)
+        det.onboard_templates(**tem)
+        out.append(det.detect(image, depth, K))
+    cpu, gpu = out
+    require(len(cpu) > 0 and len(gpu) == len(cpu),
+            f"tiny ISM: {len(gpu)} detections on the card, {len(cpu)} on "
+            f"the CPU")
+    oc, og = np.argsort(-cpu.scores), np.argsort(-gpu.scores)
+    agree = float((gpu.masks[og] == cpu.masks[oc]).mean())
+    box_err = float(np.abs(gpu.boxes[og] - cpu.boxes[oc]).max())
+    score_err = float(np.abs(gpu.scores[og] - cpu.scores[oc]).max())
+    # float32 on both: masks agree on > 99.9% of pixels, boxes within 3 px,
+    # scores within 1e-4 (summation order only), the same object ids.
+    require(agree > 0.999 and box_err <= 3.0 and score_err <= 1e-4
+            and np.array_equal(gpu.object_ids[og], cpu.object_ids[oc]),
+            f"tiny ISM: mask agreement {agree}, box err {box_err}, "
+            f"score err {score_err}")
+    log(f"tiny-config ISM frame on the card matches the CPU: {len(gpu)} "
+        f"detections, mask agreement {agree:.6f}, box err {box_err}, "
+        f"score err {score_err:.3g}")
+
+
+def synthetic_scene(rng, H=480, W=640):
+    """A few flat-coloured shapes on a textured background, their depth
+    (0.6-0.8 m on a 1.0 m plane) and LINEMOD-like intrinsics."""
+    import numpy as np
+
+    yy, xx = np.mgrid[:H, :W].astype(np.float32)
+    bg = (0.5 + 0.25 * np.sin(xx / 9.0)[..., None] * np.cos(yy / 13.0)[..., None]
+          + 0.1 * rng.rand(H, W, 3))
+    img = bg * np.array([0.6, 0.7, 0.8], np.float32)
+    depth = np.ones((H, W), np.float32)
+    for _ in range(5):
+        color = rng.rand(3)
+        cy, cx = rng.randint(80, H - 80), rng.randint(80, W - 80)
+        ry, rx = rng.randint(30, 80), rng.randint(30, 80)
+        if rng.rand() < 0.5:
+            inside = (np.abs(yy - cy) < ry) & (np.abs(xx - cx) < rx)
+        else:
+            inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0
+        img[inside] = color
+        depth[inside] = 0.6 + 0.2 * rng.rand()
+    K = np.array([[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1]],
+                 np.float32)
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8), depth, K
+
+
+def phase_ism(dev):
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch.config import default_ism_config
+    from sam6d_tpu_torch.models.ism.detector import ISMDetector
+    from sam6d_tpu_torch.models.ism.dinov2 import DescriptorModel
+    from sam6d_tpu_torch.models.ism.sam.amg import SamAutomaticMaskGenerator
+    from sam6d_tpu_torch.models.ism.sam.model import SAM
+    from sam6d_tpu_torch.models.layers import cast_dense_weights
+    from sam6d_tpu_torch.params import init_random_
+    from sam6d_tpu_torch.utils.timer import StageTimer
+
+    cfg = default_ism_config()
+    dtype = torch.bfloat16
+    t0 = time.perf_counter()
+    sam = SAM(cfg.segmentor.model_type, dtype=dtype, device="cpu")
+    init_random_(sam, torch.Generator().manual_seed(0))
+    sam = cast_dense_weights(sam.to(dev).eval())
+    desc = DescriptorModel(cfg.descriptor, dtype=dtype)
+    init_random_(desc, torch.Generator().manual_seed(1))
+    desc = cast_dense_weights(desc.to(dev).eval())
+    log(f"full-width SAM {cfg.segmentor.model_type} and DINOv2-L (bf16) with "
+        f"random weights: {time.perf_counter() - t0:.1f} s")
+    det = ISMDetector(cfg, SamAutomaticMaskGenerator(sam, cfg.segmentor),
+                      desc, device=dev)
+    # Frames 1 and 2 open the IoU, stability and confidence thresholds;
+    # frame 2 also the box NMS, since random weights give near-duplicate
+    # masks that the NMS would fold into one and the descriptor batch
+    # should be a real bucket.
+    dets_by_frame = [det]
+    for nms in (cfg.segmentor.box_nms_thresh, 1.0):
+        seg = dataclasses.replace(cfg.segmentor, pred_iou_thresh=-1e9,
+                                  stability_score_thresh=-1e9,
+                                  box_nms_thresh=nms)
+        dets_by_frame.append(ISMDetector(
+            dataclasses.replace(cfg, segmentor=seg, confidence_thresh=-1.0),
+            SamAutomaticMaskGenerator(sam, seg), desc, device=dev))
+    require(det.segmentor.fused, "the fused AMG tail is not chosen on CUDA")
+
+    rng = np.random.RandomState(0)
+    S, T = cfg.descriptor.image_size, 42
+    yy, xx = np.mgrid[:S, :S]
+    tem_masks = np.stack([((yy - S / 2) ** 2 + (xx - S / 2) ** 2
+                           < (S * (0.25 + 0.2 * rng.rand())) ** 2)
+                          for _ in range(T)])[None]
+    tem_images = rng.rand(1, T, S, S, 3).astype(np.float32) \
+        * tem_masks[..., None]
+    poses = np.tile(np.eye(4, dtype=np.float32), (T, 1, 1))
+    poses[:, :3, :3] = np.linalg.qr(rng.randn(T, 3, 3))[0]
+    pc = (rng.randn(1, cfg.pointcloud_sample_num, 3) * 0.04).astype(
+        np.float32)
+    frames = [synthetic_scene(rng) for _ in range(3)]
+    kernels = all_kernels()[2:]
+    torch.cuda.synchronize()
+
+    for k in kernels:
+        k.launches = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    det.onboard_templates(tem_images, tem_masks, poses, pc)
+    ev[1].record()
+    ev[1].synchronize()
+    onboard_ms = ev[0].elapsed_time(ev[1])
+    onboard_launches = {k.name: k.launches for k in kernels}
+    results = []
+    for i, (image, depth, K) in enumerate(frames):
+        d = dets_by_frame[i]
+        d.ref_data = det.ref_data
+        before = {k.name: k.launches for k in kernels}
+        timer = StageTimer(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = d.detect(image, depth, K, timer=timer)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        results.append(dict(
+            thresholds=("default", "opened", "opened, NMS off")[i],
+            frame_ms=ms,
+            stages_ms=timer.report(), counts=dict(d.last_counts),
+            launches={k.name: k.launches - before[k.name] for k in kernels},
+            detections=len(dets)))
+        n = len(dets)
+        require(dets.masks.shape == (n, 480, 640), "mask shape")
+        if n:
+            require(np.isfinite(dets.scores).all()
+                    and (dets.scores >= 0).all() and (dets.scores <= 1).all(),
+                    f"scores outside [0, 1]: {dets.scores}")
+            b = dets.boxes
+            require((b[:, 0::2] >= 0).all() and (b[:, 0::2] <= 639).all()
+                    and (b[:, 1::2] >= 0).all() and (b[:, 1::2] <= 479).all(),
+                    "boxes outside the frame")
+        log(f"frame {i} (thresholds {results[-1]['thresholds']}): "
+            f"{ms:.1f} ms, counts {results[-1]['counts']}, stages "
+            + ", ".join(f"{k} {v:.2f}" for k, v in
+                        results[-1]["stages_ms"].items())
+            + f" ms, launches {results[-1]['launches']}")
+    launches = {k.name: k.launches for k in kernels}
+    for k in kernels:
+        require(launches[k.name] > 0, f"{k.name} never ran on the ISM path")
+    require(results[1]["detections"] > 0 and results[2]["detections"] > 0,
+            "no detection with opened thresholds")
+    log(f"ISM onboarding (1 object x {T} views): {onboard_ms:.1f} ms, "
+        f"launches {onboard_launches}")
+    log(f"ISM main-path launches {launches}")
+    frame = frames[1]
+    return (lambda: dets_by_frame[1].detect(*frame)), dict(
+        onboard_ms=onboard_ms, onboard_launches=onboard_launches,
+        frames=results, launches=launches)
+
+
+def profile_once(fn, what: str, warm: int = 1):
+    """torch.profiler over one call of fn after `warm` calls: the
+    device-busy share of its wall time and the kernels that take the most
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    inp = request(1)
-    for _ in range(2):
-        runner.infer(inp)
+    for _ in range(warm):
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner.infer(inp)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-
     # Device-side events only (the kernels and copies themselves): a CPU
     # op's self device time repeats the kernels it launched.
     rows = sorted(((e.key, e.self_device_time_total, e.count)
@@ -362,13 +706,21 @@ def phase_profile(runner, request):
     n_device = sum(r[2] for r in rows)
     top = [dict(name=k[:90], device_ms=us / 1e3, calls=n)
            for k, us, n in rows[:25] if us > 0]
-    log(f"profiled 1-instance request: wall {wall_ms:.2f} ms, device busy "
+    log(f"profiled {what}: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
         f"{n_device} device kernels and copies")
     for r in top[:12]:
         log(f"  {r['device_ms']:8.3f} ms  {r['calls']:5d}x  {r['name']}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_events=n_device, top=top)
+
+
+def phase_profile(runner, request):
+    """One 1-instance PEM request under torch.profiler, after two warm
+    ones."""
+    inp = request(1)
+    return profile_once(lambda: runner.infer(inp), "1-instance request",
+                        warm=2)
 
 
 def main():
@@ -380,7 +732,7 @@ def main():
         return 1
     sys.path.insert(0, str(ROOT))
     import sam6d_tpu_torch  # noqa: F401  (fails outside the repository)
-    from sam6d_tpu_torch.ops import fps, geo_embed
+    from sam6d_tpu_torch.ops import decode_tail, flash_rpe, fps, geo_embed
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -389,34 +741,62 @@ def main():
     log("== phase 2: kernels against their plain versions")
     fps_rows = check_fps(dev)
     geo_rows = check_geo_embed(dev)
+    rpe_rows, flash_rows = check_attention(dev)
+    tail_rows = check_decode_tail(dev)
     check_tiny_bank(dev)
+    check_tiny_ism(dev)
     log("== phase 3: PEM serving slice at full width")
     runner, request, sl = phase_slice(dev)
     sl["profile"] = phase_profile(runner, request)
+    del runner
+    torch.cuda.empty_cache()
+    log("== phase 4: ISM serving slice at full width")
+    frame, ism = phase_ism(dev)
+    ism["profile"] = profile_once(frame, "ISM frame (opened thresholds)")
 
-    def entry(kernel, rows, main_row):
+    def entry(kernel, rows, main_row, launches, library=None):
         main = rows[main_row]
         return {
             "name": kernel.name, "route": "cuda",
             "source": str(kernel.source.relative_to(ROOT)),
             "replaces": kernel.replaces,
-            "launches": sl["launches"][kernel.name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "launches": launches[kernel.name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["max_abs_err"] is not None),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None,
-            "shape": main["shape"], "by_shape": rows,
+            "library_ms": main.get("library_ms"),
+            "library": library, "shape": main["shape"], "by_shape": rows,
         }
 
-    # The per-request shapes: FPS of one instance (2048 -> 196) and the
-    # bf16 embedding of one instance.
-    report = {"kernels": [entry(fps.KERNEL, fps_rows, 0),
-                          entry(geo_embed.KERNEL, geo_rows, 0)]}
+    # Main rows: FPS of one instance (2048 -> 196) and the bf16 embedding
+    # of one instance (PEM request); a windowed SAM block (28 of the 32
+    # K4 launches of a frame); DINOv2-L at a bucket of 256 proposals; the
+    # AMG tail over all 1024 prompts, whose plain version is timed at
+    # P = 64 (by_shape[0], kernel and plain at P = 64).
+    report = {"kernels": [
+        entry(fps.KERNEL, fps_rows, 0, sl["launches"],
+              "none: no PyTorch call computes farthest point sampling"),
+        entry(geo_embed.KERNEL, geo_rows, 0, sl["launches"],
+              "none: no single PyTorch call computes the Chebyshev "
+              "embedding with its max over k"),
+        entry(flash_rpe.KERNEL_RPE, rpe_rows, 0, ism["launches"],
+              "F.scaled_dot_product_attention with the dense (BH, N, N) "
+              "rel-pos bias as attn_mask, built beforehand, not timed"),
+        entry(flash_rpe.KERNEL_PLAIN, flash_rows, 1, ism["launches"],
+              "F.scaled_dot_product_attention"),
+        dict(entry(decode_tail.KERNEL, tail_rows, 1, ism["launches"],
+                   "none: no PyTorch call computes the tail statistics"),
+             plain_ms=tail_rows[0]["plain_ms"],
+             plain_note="plain version timed at P=64 (it materializes "
+                        "several GB at P=1024); the kernel at P=64: "
+                        f"{tail_rows[0]['ms']} ms"),
+    ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "build_s": build_s, "slice": sl, **report}, indent=1))
+         "build_s": build_s, "slice": sl, "ism": ism, **report}, indent=1))
     log(smi)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

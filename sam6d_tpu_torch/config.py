@@ -1,9 +1,10 @@
-"""PEM configuration dataclasses.
+"""PEM and ISM configuration dataclasses.
 
-A standalone copy of the PEM part of `sam6d_tpu/config.py` (the port
-imports nothing of the JAX package).  Names and defaults are identical,
-so a config written for one package describes the same network in the
-other.  Reference: Pose_Estimation_Model/config/base.yaml:16-54.
+A standalone copy of the PEM and ISM parts of `sam6d_tpu/config.py` (the
+port imports nothing of the JAX package).  Names and defaults are
+identical, so a config written for one package describes the same
+network in the other.  References: Pose_Estimation_Model/config/
+base.yaml:16-54 and Instance_Segmentation_Model/configs/model/.
 """
 
 from __future__ import annotations
@@ -123,3 +124,94 @@ class PEMConfig:
 def default_pem_config() -> PEMConfig:
     return PEMConfig()
 
+
+
+# -- ISM (reference Instance_Segmentation_Model/configs) ---------------------
+
+
+@dataclass(frozen=True)
+class SegmentorConfig:
+    """SAM automatic-mask-generation settings.
+
+    Reference: Instance_Segmentation_Model/configs/model/segmentor_model/sam.yaml
+    (stability_score_thresh 0.85, iou_threshold 0.88, points_per_batch 64).
+    """
+
+    model_type: str = "vit_h"
+    points_per_side: int = 32
+    points_per_batch: int = 64
+    stability_score_thresh: float = 0.85
+    pred_iou_thresh: float = 0.88
+    stability_score_offset: float = 1.0
+    box_nms_thresh: float = 0.7
+    mask_threshold: float = 0.0
+    segmentor_width_size: int = 640
+    # Post-filter: drop disconnected regions / fill holes smaller than
+    # this many pixels (reference sam.yaml min_mask_region_area, 0 = off).
+    min_mask_region_area: int = 0
+    # Fused decode-tail statistics kernel (ops/decode_tail.py): None = on
+    # when the tensors lie on a CUDA device (the JAX package's rule is "on
+    # TPU"); True/False force.  The unfused path stays as a second oracle.
+    fused_tail: bool | None = None
+
+
+@dataclass(frozen=True)
+class FastSAMConfig:
+    """FastSAM (YOLOv8-seg) proposal-generation settings (the segmentor
+    itself is not ported yet).
+
+    Reference: Instance_Segmentation_Model/configs/model/segmentor_model/
+    fast_sam.yaml + model/fast_sam.py CustomYOLO overrides.
+    """
+
+    scale: str = "x"
+    img_size: int = 640
+    iou_threshold: float = 0.9
+    conf_threshold: float = 0.05
+    max_det: int = 200
+
+
+@dataclass(frozen=True)
+class DescriptorConfig:
+    """DINOv2 descriptor settings.
+
+    Reference: Instance_Segmentation_Model/configs/model/descriptor_model/dinov2.yaml
+    (vitl14, 224x224 crops, chunk 42) and model/dinov2.py.
+    """
+
+    model_type: str = "vitl14"
+    image_size: int = 224
+    patch_size: int = 14
+    chunk_size: int = 42
+    embed_dim: int = 1024
+    depth: int = 24
+    num_heads: int = 16
+    validpatch_thresh: float = 0.5
+
+
+@dataclass(frozen=True)
+class ISMConfig:
+    """Instance Segmentation Model.
+
+    Reference: Instance_Segmentation_Model/configs/model/ISM_sam.yaml
+    (nms_thresh 0.25, confidence_thresh 0.2, aggregation avg_5, chunk 16).
+    """
+
+    segmentor: SegmentorConfig = field(default_factory=SegmentorConfig)
+    fastsam: FastSAMConfig = field(default_factory=FastSAMConfig)
+    descriptor: DescriptorConfig = field(default_factory=DescriptorConfig)
+    # Network compute dtype (params stay f32; scoring/geometry stay f32).
+    compute_dtype: str = "bfloat16"
+    max_proposals: int = 256
+    matching_chunk_size: int = 16
+    aggregation_function: str = "avg_5"
+    confidence_thresh: float = 0.2
+    nms_thresh: float = 0.25
+    min_box_size: float = 0.05
+    min_mask_size: float = 3e-4
+    visible_thred: float = 0.5
+    pointcloud_sample_num: int = 2048
+
+
+def default_ism_config() -> ISMConfig:
+    return ISMConfig()

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sam6d_tpu_torch.models.layers import Dense, LayerNorm, f32_matmul
+from sam6d_tpu_torch.ops.flash_rpe import flash_attention
 
 
 class PatchEmbed(nn.Module):
@@ -49,11 +50,17 @@ class MlpBlock(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
+    """use_flash: the online-softmax kernel K5 (`ops/flash_rpe.py`)
+    instead of the materialized (B, H, N, N) attention; the same function
+    (on the CPU the wrapper computes the materialized form)."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
+                 use_flash: bool = False):
         super().__init__()
         self.qkv = Dense(dim, 3 * dim, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
         self.num_heads = num_heads
+        self.use_flash = use_flash
 
     def forward(self, x):
         B, N, C = x.shape
@@ -61,6 +68,13 @@ class Attention(nn.Module):
         hd = C // H
         qkv = self.qkv(x).reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, N, hd)
+        if self.use_flash:
+            def flat(t):
+                return t.reshape(B * H, N, hd).contiguous()
+
+            out = flash_attention(flat(q), flat(k), flat(v))
+            out = out.reshape(B, H, N, hd).transpose(1, 2).reshape(B, N, C)
+            return self.proj(out)
         attn = f32_matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
         attn = torch.softmax(attn, dim=-1).to(x.dtype)
         out = (attn @ v).transpose(1, 2).reshape(B, N, C)

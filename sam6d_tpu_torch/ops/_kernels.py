@@ -77,10 +77,11 @@ def _nvcc() -> str:
 def build_all(kernels) -> None:
     """Compile every kernel whose library is missing, all in parallel."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    procs, seen = [], set()
     for k in kernels:
-        if k.lib_path.exists():
-            continue
+        if k.lib_path.exists() or k.lib_path in seen:
+            continue  # built, or shared with a kernel already building
+        seen.add(k.lib_path)
         tmp = k.lib_path.with_suffix(f".{os.getpid()}.tmp")
         procs.append((k, tmp, subprocess.Popen(
             k._build_cmd(tmp), stdout=subprocess.PIPE,

@@ -42,3 +42,16 @@ def compute_feature_similarity(feat1, feat2, sim_type: str = "cosine",
         raise ValueError(f"unknown sim_type {sim_type}")
     # The pose solvers and their scores consume float32 attention.
     return atten.float() / temp
+
+
+def project_points(pts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Camera-frame points (..., N, 3) and intrinsics (3, 3) -> (..., N, 2)
+    (u, v) pixel coordinates."""
+    homo = torch.einsum("ij,...nj->...ni", K, pts)
+    return homo[..., :2] / torch.clamp_min(homo[..., 2:3], 1e-9)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim, eps: float = 1e-8):
+    """Mean of `x` over `dim` counting only entries where mask != 0."""
+    m = mask.to(x.dtype)
+    return torch.sum(x * m, dim=dim) / (torch.sum(m, dim=dim) + eps)

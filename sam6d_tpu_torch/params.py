@@ -7,8 +7,14 @@ The port's submodules carry the flax names, so a flax leaf
 * a 2-D Dense `kernel` (in, out) becomes `weight` (out, in), transposed;
 * a 1-D LayerNorm / BatchNorm `scale` becomes `weight`;
 * `batch_stats` `mean` / `var` become `running_mean` / `running_var`;
-* every other leaf (biases, tokens, the (p, p, C, D) patch kernel, the
-  linear-attention `scale`) keeps its name and shape.
+* every other leaf keeps its name and shape: biases, tokens, the
+  (p, p, C, D) patch kernel and the (kh, kw, C, O) conv and
+  ConvTranspose kernels, the rel-pos tables, the Fourier matrix, the
+  LayerScale `gamma` and the linear-attention `scale`.
+
+`sam_state_dict` maps the JAX SAM's three trees (encoder, prompt,
+decoder) at once; the DINOv2 tree maps as it is, into
+`DescriptorModel.vit`.
 
 The input is a nested dict of numpy arrays (for example
 `jax.tree.map(np.asarray, variables)`); this module imports no JAX.
@@ -36,7 +42,7 @@ def flax_to_state_dict(variables) -> dict:
     for collection, tree in variables.items():
         for path, arr in _flatten(tree):
             *mods, leaf = path
-            arr = np.asarray(arr, dtype=np.float32)
+            arr = np.array(arr, dtype=np.float32)  # a writable copy
             if collection == "batch_stats":
                 leaf = {"mean": "running_mean", "var": "running_var"}[leaf]
             elif leaf == "kernel" and arr.ndim == 2:
@@ -45,6 +51,21 @@ def flax_to_state_dict(variables) -> dict:
                 leaf = "weight"
             out[".".join([*mods, leaf])] = torch.from_numpy(
                 np.ascontiguousarray(arr))
+    return out
+
+
+def sam_state_dict(variables) -> dict:
+    """The JAX SAM's {"encoder", "prompt", "decoder"} variable trees ->
+    the port `SAM`'s state dict (`encoder.*`, `prompt.*`, `decoder.*`).
+    4-D conv kernels (neck, ConvTranspose) keep their (kh, kw, C, O)
+    layout.  The prompt encoder's `mask_downscaling_*` weights belong to
+    the mask-prompt path, which is not ported, and are left out."""
+    out = {}
+    for part, tree in variables.items():
+        for key, val in flax_to_state_dict(tree).items():
+            if part == "prompt" and key.startswith("mask_downscaling"):
+                continue
+            out[f"{part}.{key}"] = val
     return out
 
 
@@ -58,11 +79,19 @@ def load_npz(path: str) -> dict:
         return {k: torch.from_numpy(data[k]) for k in data.files}
 
 
+# Leaves the JAX package draws from N(0, 1): SAM's prompt and decoder
+# tokens and its random Fourier features.
+_UNIT_NORMAL = ("positional_encoding_gaussian_matrix", "not_a_point_embed",
+                "no_mask_embed", "iou_token", "mask_tokens")
+
+
 @torch.no_grad()
 def init_random_(model: torch.nn.Module, generator: torch.Generator):
     """Seeded random weights in the JAX package's init scheme: LeCun-normal
-    Dense kernels (std 1/sqrt(fan_in)), zero biases, unit norm scales,
-    N(0, 0.02) tokens, zero linear-attention scales (flax defaults)."""
+    Dense and conv kernels (std 1/sqrt(fan_in)), zero biases, unit norm
+    and LayerScale scales, N(0, 0.02) cls / pos / bg tokens, N(0, 1) SAM
+    prompt and decoder tokens, zero rel-pos tables and linear-attention
+    scales (flax defaults)."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "kernel" or (leaf == "weight" and p.dim() == 2):
@@ -71,7 +100,9 @@ def init_random_(model: torch.nn.Module, generator: torch.Generator):
                     / math.sqrt(fan_in))
         elif leaf in ("cls_token", "pos_embed", "bg_token"):
             p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
-        elif leaf == "weight":
+        elif leaf in _UNIT_NORMAL or leaf.startswith("point_embed_"):
+            p.copy_(torch.randn(p.shape, generator=generator))
+        elif leaf in ("weight", "gamma"):
             p.fill_(1.0)
         else:
             p.zero_()

@@ -15,6 +15,8 @@ from sam6d_tpu_torch.models.pem.geo_embedding import (
     GeometricStructureEmbedding,
     geometric_embedding_indices,
 )
+from sam6d_tpu_torch.ops import decode_tail as dt
+from sam6d_tpu_torch.ops import flash_rpe as fr
 from sam6d_tpu_torch.ops import fps as fps_mod
 from sam6d_tpu_torch.ops import geo_embed as ge
 from sam6d_tpu_torch.params import init_random_
@@ -113,3 +115,101 @@ def test_geo_embedding_auto_uses_the_kernel_at_batch_one(dev):
     np.testing.assert_allclose(got[:, 1:, 1:][:, off_diag],
                                plain[:, 1:, 1:][:, off_diag], atol=2e-4)
     np.testing.assert_allclose(got, plain, atol=3e-3)
+
+
+# Attention tolerances: float32 differs by summation order only; in
+# bfloat16 the plain version rounds the probabilities to bfloat16 before
+# the product with v (0.4% each) and both round the output, so they may
+# land two bfloat16 steps apart.
+ATTN_TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _qkv(dev, BH, N, d, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k = (torch.randn(BH, N, d, generator=g, device=dev) * 0.3
+            for _ in range(2))
+    v = torch.randn(BH, N, d, generator=g, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,h,w,d", [
+    (3, 8, 8, 16), (16, 14, 14, 80), (2, 64, 64, 80), (1, 7, 9, 32)])
+def test_flash_rpe_kernel_matches_plain(dev, dtype, BH, h, w, d):
+    q, k, v = _qkv(dev, BH, h * w, d, dtype)
+    g = torch.Generator(device=dev).manual_seed(1)
+    rh = (torch.randn(2 * h - 1, d, generator=g, device=dev) * 0.1).to(dtype)
+    rw = (torch.randn(2 * w - 1, d, generator=g, device=dev) * 0.1).to(dtype)
+    got = fr.flash_rpe_attention_cuda(q, k, v, rh, rw, (h, w)).float()
+    want = fr.rpe_attention_plain(q, k, v, rh, rw, (h, w)).float()
+    torch.cuda.synchronize()
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,N,d", [(8, 257, 64), (4, 64, 16), (2, 300, 128)])
+def test_flash_attention_kernel_matches_plain(dev, dtype, BH, N, d):
+    q, k, v = _qkv(dev, BH, N, d, dtype)
+    got = fr.flash_attention_cuda(q, k, v).float()
+    want = fr.attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+def test_flash_attention_survives_large_logits(dev):
+    q, k, v = _qkv(dev, 2, 200, 64, torch.float32)
+    got = fr.flash_attention_cuda(q * 40.0, k, v)
+    want = fr.attention_plain(q * 40.0, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+
+
+def _tail_inputs(dev, P, N, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * s
+
+    return dict(keys=r(P, N, 256, s=0.5).to(dtype), hyper=r(P, 3, 32, s=0.5),
+                w1=r(256, 256, s=0.05), b1=r(256, s=0.05),
+                ln_scale=1.0 + r(256, s=0.1), ln_bias=r(256, s=0.1),
+                w2=r(64, 128, s=0.1), b2=r(128, s=0.05))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,N", [(3, 256), (2, 100), (4, 4096)])
+def test_decode_tail_kernel_matches_plain(dev, dtype, P, N):
+    # Counts atol 8 and boxes atol 4 px, as the JAX package holds its
+    # kernel to its reference: float32 summation order flips the pixels
+    # whose logit lies within rounding of a threshold.
+    inp = _tail_inputs(dev, P, N, dtype)
+    kw = dict(mask_threshold=0.0, stability_offset=0.3)
+    got = dt.decode_tail_stats_cuda(**inp, **kw)
+    want = dt.decode_tail_stats_plain(**inp, **kw)
+    torch.cuda.synchronize()
+    for rows, atol in (((0, 1, 6), 8.0), ((2, 3, 4, 5), 4.0), ((7,), 0.0)):
+        torch.testing.assert_close(got[:, list(rows)], want[:, list(rows)],
+                                   atol=atol, rtol=0)
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q, k, v = _qkv(dev, 1, 16, 48, torch.float32)  # head dim 48
+    with pytest.raises(ValueError):
+        fr.flash_attention_cuda(q, k, v)
+    q, k, v = _qkv(dev, 1, 65 * 2, 16, torch.float32)
+    rh = torch.zeros(129, 16, device=dev)
+    with pytest.raises(ValueError):  # a grid side above 64
+        fr.flash_rpe_attention_cuda(q, k, v, rh, torch.zeros(3, 16,
+                                                             device=dev),
+                                    (65, 2))
+    flat = torch.zeros(4 * 16 * 16 + 1, device=dev, dtype=torch.bfloat16)
+    q = flat[1:].view(4, 16, 16)  # contiguous, 2 bytes off alignment
+    with pytest.raises(ValueError):
+        fr.flash_attention_cuda(q, q, q)
+    inp = _tail_inputs(dev, 1, 16, torch.float32)
+    inp["w2"] = inp["w2"].T.contiguous()
+    with pytest.raises(ValueError):
+        dt.decode_tail_stats_cuda(**inp)
