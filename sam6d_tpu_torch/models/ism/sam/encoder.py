@@ -24,10 +24,7 @@ from torch import nn
 
 from sam6d_tpu_torch.models.layers import Dense, LayerNorm
 from sam6d_tpu_torch.models.vit import PatchEmbed
-from sam6d_tpu_torch.ops.flash_rpe import (
-    flash_rpe_attention,
-    rpe_attention_plain,
-)
+from sam6d_tpu_torch.ops.flash_rpe import flash_rpe_attention
 
 
 def window_partition(x: torch.Tensor, window: int):
@@ -54,14 +51,10 @@ def window_unpartition(x: torch.Tensor, window: int, pad_hw, hw):
 
 class WindowAttention(nn.Module):
     """Attention over a (h, w) token grid with the decomposed rel-pos
-    bias, optionally within window_size x window_size windows.
-
-    flash: None or True takes `flash_rpe_attention` (the kernel on the
-    card); False computes the materialized plain version on any device."""
+    bias, optionally within window_size x window_size windows."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
-                 grid: tuple[int, int], dtype=torch.float32,
-                 flash: bool | None = None):
+                 grid: tuple[int, int], dtype=torch.float32):
         super().__init__()
         self.qkv = Dense(dim, 3 * dim, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
@@ -70,7 +63,6 @@ class WindowAttention(nn.Module):
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * h - 1, hd))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * w - 1, hd))
         self.dim, self.num_heads, self.window_size = dim, num_heads, window_size
-        self.flash = flash
 
     def forward(self, x):
         """x (B, gh, gw, C) -> (B, gh, gw, C)."""
@@ -87,10 +79,8 @@ class WindowAttention(nn.Module):
         nB = qkv.shape[0]
         qkv = qkv.reshape(nB, h * w, 3, H, hd).permute(2, 0, 3, 1, 4)
         q, k, v = (t.reshape(nB * H, h * w, hd).contiguous() for t in qkv)
-        attend = rpe_attention_plain if self.flash is False \
-            else flash_rpe_attention
-        out = attend(q, k, v, self.rel_pos_h.to(q.dtype),
-                     self.rel_pos_w.to(q.dtype), (h, w))
+        out = flash_rpe_attention(q, k, v, self.rel_pos_h.to(q.dtype),
+                                  self.rel_pos_w.to(q.dtype), (h, w))
         out = out.reshape(nB, H, h, w, hd).permute(0, 2, 3, 1, 4)
         out = out.reshape(nB, h, w, C)
         if ws > 0:
@@ -101,11 +91,10 @@ class WindowAttention(nn.Module):
 class SAMBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  window_size: int, grid: tuple[int, int],
-                 dtype=torch.float32, flash: bool | None = None):
+                 dtype=torch.float32):
         super().__init__()
         self.norm1 = LayerNorm(dim, dtype)
-        self.attn = WindowAttention(dim, num_heads, window_size, grid, dtype,
-                                    flash)
+        self.attn = WindowAttention(dim, num_heads, window_size, grid, dtype)
         self.norm2 = LayerNorm(dim, dtype)
         self.mlp_lin1 = Dense(dim, int(dim * mlp_ratio), dtype=dtype)
         self.mlp_lin2 = Dense(int(dim * mlp_ratio), dim, dtype=dtype)
@@ -158,20 +147,19 @@ class ImageEncoderViT(nn.Module):
                  global_attn_indexes: Sequence[int] = (7, 15, 23, 31),
                  dtype=torch.float32, flash: bool | None = None,
                  flash_windowed: bool | None = None):
-        """flash_windowed: the windowed blocks' `flash`, None = as `flash`
-        (the JAX package tunes it for TPU grids; on the card K4 serves
-        windowed and global blocks alike)."""
+        """`flash` and `flash_windowed` are taken for the JAX signature's
+        sake (there they pick the Pallas kernel or XLA, tuned for TPU
+        grids) and choose nothing here: every block runs K4 on the card
+        and its plain version on the CPU."""
         super().__init__()
         g = img_size // patch_size
         self.patch_embed = PatchEmbed(3, embed_dim, patch_size, dtype)
         self.pos_embed = nn.Parameter(torch.zeros(1, g, g, embed_dim))
-        fw = flash if flash_windowed is None else flash_windowed
         for i in range(depth):
             is_global = i in global_attn_indexes
             self.add_module(f"blocks_{i}", SAMBlock(
                 embed_dim, num_heads, mlp_ratio,
-                0 if is_global else window_size, (g, g), dtype,
-                flash if is_global else fw))
+                0 if is_global else window_size, (g, g), dtype))
         self.neck_0 = Conv2d(embed_dim, out_chans, 1, dtype)
         self.neck_1 = LayerNorm2d(out_chans)
         self.neck_2 = Conv2d(out_chans, out_chans, 3, dtype)
