@@ -27,7 +27,14 @@ process per source, all at once), then:
    then three 480 x 640 frames of a synthetic scene, one at the default
    thresholds and two with the IoU, stability and confidence thresholds
    opened.  Counters zeroed before and read after, as in phase 3; one
-   more frame runs under torch.profiler.
+   more frame runs under torch.profiler;
+5. the PEM training slice at full width: the Solver that
+   `train_cli --synthetic` builds (default_pem_config, bfloat16 compute,
+   float32 parameters and Adam state, batch 28 of synthetic samples),
+   2 warm-up and 3 timed steps (CUDA events), the peak memory, the
+   metrics of each step; counters zeroed before and read after, K1, K2,
+   K3 (the embedding backward) and K7 (the row scatter-add) required.
+   One more step runs under torch.profiler.
 
 Any failure exits non-zero.  The last lines are the nvidia-smi name and
 power limit, {"kernels": [...]}, and
@@ -38,6 +45,7 @@ Details also go to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -111,10 +119,17 @@ def time_in_turns(fns: dict, reps: int, warmup: int = 1):
 
 
 def all_kernels():
-    from sam6d_tpu_torch.ops import decode_tail, flash_rpe, fps, geo_embed
+    from sam6d_tpu_torch.ops import (
+        decode_tail,
+        flash_rpe,
+        fps,
+        geo_embed,
+        scatter_rows,
+    )
 
     return [fps.KERNEL, geo_embed.KERNEL, flash_rpe.KERNEL_RPE,
-            flash_rpe.KERNEL_PLAIN, decode_tail.KERNEL]
+            flash_rpe.KERNEL_PLAIN, decode_tail.KERNEL, geo_embed.KERNEL_BWD,
+            scatter_rows.KERNEL]
 
 
 def phase_environment():
@@ -154,9 +169,14 @@ def check_fps(dev):
 
     from sam6d_tpu_torch.ops import fps
 
+    # Serving: one instance and a bucket of 8 (shared-memory variant, 256
+    # threads), the onboarding cloud (device-memory variant, 1024 threads).
+    # Training: the 28 template clouds of 2 x 5000 points -> 2048
+    # (shared-memory variant, 1024 threads) and the 2 x 28 clouds -> 196.
     rows = []
     for B, N, npoint, reps in ((1, 2048, 196, 20), (8, 2048, 196, 20),
-                               (1, 210000, 2048, 4)):
+                               (1, 210000, 2048, 4), (28, 10000, 2048, 3),
+                               (56, 2048, 196, 10)):
         g = torch.Generator(device=dev).manual_seed(N + B)
         pts = torch.rand(B, N, 3, generator=g, device=dev) * 0.2 - 0.1
         got = fps.fps_cuda(pts, npoint)
@@ -200,7 +220,8 @@ def check_geo_embed(dev):
         with torch.no_grad():
             Md = mod._fold(40, 20.0, mod.proj_d).contiguous()
             Ma = mod._fold(28, 12.0, mod.proj_a).contiguous()
-        for B in (1, 8):
+        # B = 56: the training step's 2 x 28 clouds (bf16 only).
+        for B in (1, 8, 56) if dtype == torch.bfloat16 else (1, 8):
             g = torch.Generator(device=dev).manual_seed(B)
             pts = torch.rand(B, N, 3, generator=g, device=dev) * 2 - 1
             pts[:, 0] = 100.0  # the bg sentinel
@@ -234,17 +255,11 @@ def check_geo_embed(dev):
     return rows
 
 
-def check_tiny_bank(dev):
-    """Tiny-config template bank (float32) on the card (kernels) against
-    the same bank on the CPU (plain versions and the unfused path)."""
-    import numpy as np
-    import torch
-
+def tiny_pem_config():
+    """The tiny PEMConfig of the JAX tests (tests/test_pem_model.py)."""
     from sam6d_tpu_torch import config as c
-    from sam6d_tpu_torch.models.pem.model import PEM
-    from sam6d_tpu_torch.params import init_random_
 
-    cfg = c.PEMConfig(
+    return c.PEMConfig(
         coarse_npoint=16, fine_npoint=64,
         feature_extraction=c.ViTConfig(embed_dim=48, out_dim=32, img_size=32,
                                        patch_size=8),
@@ -255,8 +270,20 @@ def check_tiny_bank(dev):
         fine_point_matching=c.FineMatchingConfig(
             input_dim=32, hidden_dim=32, out_dim=32, pe_nsample1=8,
             pe_nsample2=16),
+        n_sample_model_point=32,
     )
-    model = init_random_(PEM(cfg, device="cpu").eval(),
+
+
+def check_tiny_bank(dev):
+    """Tiny-config template bank (float32) on the card (kernels) against
+    the same bank on the CPU (plain versions and the unfused path)."""
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch.models.pem.model import PEM
+    from sam6d_tpu_torch.params import init_random_
+
+    model = init_random_(PEM(tiny_pem_config(), device="cpu").eval(),
                          torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
     po = torch.from_numpy((rng.randn(1, 64, 3) * 0.05).astype(np.float32))
@@ -639,6 +666,215 @@ def check_tiny_bf16(dev):
     return errs
 
 
+def check_geo_embed_bwd(dev):
+    """K3 against its plain version: at the training shape (56, 197, 197),
+    d = 256, bfloat16, and at a tiny float32 shape with constructed exact
+    ties across k (all three k equal: every channel a three-way tie).
+    Also: two launches on the same inputs give the same bits (the
+    cross-block sum runs in a fixed order).  No PyTorch call computes
+    these gradients."""
+    import torch
+
+    from sam6d_tpu_torch.config import GeoEmbeddingConfig
+    from sam6d_tpu_torch.models.pem.geo_embedding import (
+        GeometricStructureEmbedding,
+        geometric_embedding_indices,
+    )
+    from sam6d_tpu_torch.ops import geo_embed
+    from sam6d_tpu_torch.params import init_random_
+
+    # Relative (Frobenius) per output.  bf16 at the training shape: float32
+    # sums over 2.2M pairs taken in another order, and at near-ties of the
+    # max over k the kernel's fmaf chain (the forward kernel's) and the
+    # plain version's matmul may pick different winners: 1e-3.  float32
+    # with all k tied: no near-ties, the shares exact on both sides: 1e-5.
+    rows = []
+    cases = ((torch.bfloat16, 56, 197, 256, False, 1e-3, 5),
+             (torch.float32, 2, 33, 32, True, 1e-5, 10))
+    for dtype, B, N, d, ties, tol, reps in cases:
+        mod = GeometricStructureEmbedding(GeoEmbeddingConfig(hidden_dim=d),
+                                          dtype)
+        init_random_(mod, torch.Generator().manual_seed(0))
+        mod.to(dev)
+        with torch.no_grad():
+            Ma = mod._fold(28, 12.0, mod.proj_a).contiguous()
+        g = torch.Generator(device=dev).manual_seed(B)
+        pts = torch.rand(B, N, 3, generator=g, device=dev) * 2 - 1
+        pts[:, 0] = 100.0  # the bg sentinel
+        d_idx, a_idx = geometric_embedding_indices(pts, 0.2, 15.0, 3)
+        d_idx = torch.clamp_max(d_idx, 20.0).contiguous()
+        a_idx = a_idx.contiguous()
+        if ties:
+            a_idx = a_idx[..., :1].expand_as(a_idx).contiguous()
+        cot = torch.randn(B, N, N, d, generator=g, device=dev).to(dtype)
+        args = (d_idx, a_idx, Ma, cot, 20.0, 12.0)
+        got = geo_embed.geo_embed_maxk_bwd_cuda(*args)
+        again = geo_embed.geo_embed_maxk_bwd_cuda(*args)
+        want = geo_embed.geo_embed_maxk_bwd_plain(*args, 40)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"geo_embed_bwd {dtype}: two launches differ")
+        errs = {n: rel_err(a, b) for n, a, b in
+                zip(("dMd", "dMa", "dbias"), got, want)}
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        require(max(errs.values()) <= tol,
+                f"geo_embed_bwd {dtype} ({B},{N},{N}): relative errors "
+                f"{errs} > {tol}")
+        del got, again, want
+        t = time_in_turns({
+            "kernel": lambda: geo_embed.geo_embed_maxk_bwd_cuda(*args),
+            "plain": lambda: geo_embed.geo_embed_maxk_bwd_plain(*args, 40),
+        }, reps)
+        # Per pair and channel 40 + 84 + 84 multiply-adds (dMd, the
+        # recomputed e_k, dMa) on operands of the compute dtype; bytes: g
+        # and the index fields read once, Ma read, three outputs written.
+        es = torch.finfo(dtype).bits // 8
+        pairs = B * N * N
+        nbytes = pairs * (d * es + 16) + 28 * d * es + 69 * d * 4
+        flops = pairs * d * 2 * (40 + 84 + 84)
+        b_ms, b_by = bound(nbytes, flops, str(dtype).split(".")[-1])
+        rows.append(dict(shape=f"({B},{N},{N}),d={d},{dtype}"
+                               + (", exact ties" if ties else ""),
+                         max_abs_err=err, rel_errs=errs, tolerance=tol,
+                         deterministic=True, ms=t["kernel"],
+                         plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by))
+        log(f"geo_embed_bwd {rows[-1]}")
+        del cot, args
+    return rows
+
+
+def check_scatter_rows(dev):
+    """K7 against its plain version at the fine-stage positional
+    encoding's two scales, (28, 2048 * 64) and (28, 2048 * 32) rows of 32
+    bf16 channels into (28, 2048, 32) float32, 1% of the indices negative
+    (dropped).  Yardstick: one `index_add_` of the same rows (float32
+    source and flat indices, built beforehand and not timed).  The spread
+    between two launches on the same inputs is the run-to-run effect of
+    the atomics' order."""
+    import torch
+
+    from sam6d_tpu_torch.ops import scatter_rows as sr
+
+    B, N, C = 28, 2048, 32
+    rows = []
+    for S, reps in ((64, 10), (32, 10)):
+        Q = N * S
+        g = torch.Generator(device=dev).manual_seed(S)
+        idx = torch.randint(0, N, (B, Q), generator=g, device=dev)
+        idx[torch.rand(B, Q, generator=g, device=dev) < 0.01] = -1
+        dy = torch.randn(B, Q, C, generator=g, device=dev).bfloat16()
+        got = sr.scatter_rows_cuda(idx, dy, N)
+        again = sr.scatter_rows_cuda(idx, dy, N)
+        want = sr.scatter_rows_plain(idx, dy, N)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        spread = float((got - again).abs().max())
+        # float32 sums of about S unit-size terms per row, in the order the
+        # atomics land: within 1e-4 of any other order.
+        require(err <= 1e-4 and spread <= 1e-4,
+                f"scatter_rows S={S}: max abs err {err}, spread {spread}")
+        del got, again, want
+        offs = torch.arange(B, device=dev)[:, None] * N
+        flat = torch.where(idx >= 0, idx + offs, B * N).reshape(-1)
+        dyf = dy.reshape(-1, C).float()
+        t = time_in_turns({
+            "kernel": lambda: sr.scatter_rows_cuda(idx, dy, N),
+            "plain": lambda: sr.scatter_rows_plain(idx, dy, N),
+            "library": lambda: torch.zeros(B * N + 1, C, device=dev)
+            .index_add_(0, flat, dyf),
+        }, reps)
+        nbytes = B * Q * (C * 2 + 8) + B * N * C * 4
+        b_ms, b_by = bound(nbytes, B * Q * C, "float32")
+        rows.append(dict(shape=f"({B},{Q},{C}) bf16 -> ({B},{N},{C}) f32",
+                         max_abs_err=err, spread_between_launches=spread,
+                         ms=t["kernel"], plain_ms=t["plain"],
+                         library_ms=t["library"], bound_ms=b_ms,
+                         bound_by=b_by))
+        log(f"scatter_rows {rows[-1]}")
+        del idx, dy, flat, dyf
+    return rows
+
+
+def check_tiny_train_step(dev):
+    """One tiny-config training forward and backward (float32, random
+    weights from a seed, two synthetic samples, fixed pose noise) on the
+    card (K1, K2 and K3 through the fused embedding, K7 under the
+    positional encoding) against the same on the CPU (plain versions, the
+    unfused embedding): the loss, every gradient leaf and the BatchNorm
+    statistics."""
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch import config as c
+    from sam6d_tpu_torch.models.pem.model import PEM
+    from sam6d_tpu_torch.ops import fps, geo_embed, scatter_rows
+    from sam6d_tpu_torch.params import init_random_
+    from sam6d_tpu_torch.provider.training_dataset import (
+        SyntheticPoseDataset,
+        collate,
+    )
+    from sam6d_tpu_torch.train.loss import pem_loss
+    from sam6d_tpu_torch.train.state import _to_device
+
+    tcfg = c.TrainConfig(batch_size=2, img_size=32, n_sample_observed_point=64,
+                         n_sample_template_point=48)
+    ds = SyntheticPoseDataset(tcfg, n_samples=2)
+    batch = collate([ds[0], ds[1]])
+    rng = np.random.RandomState(0)
+    n_rot, n_trans = (torch.from_numpy(rng.randn(2, 3).astype(np.float32))
+                      for _ in range(2))
+    kernels = [fps.KERNEL, geo_embed.KERNEL, geo_embed.KERNEL_BWD,
+               scatter_rows.KERNEL]
+    res = []
+    for device in ("cpu", dev):
+        model = init_random_(PEM(tiny_pem_config(), device="cpu"),
+                             torch.Generator().manual_seed(0)).to(device)
+        b = _to_device(batch, device)
+        before = [k.launches for k in kernels]
+        out = model.train_forward(
+            b["pts"], b["rgb"], b["rgb_choose"], b["tem_rgb"], b["tem_pts"],
+            b["tem_choose"], b["gt_r"], b["gt_t"],
+            noise=(5.0, n_rot.to(device), n_trans.to(device)))
+        loss, _ = pem_loss(out, b["gt_r"], b["gt_t"])
+        loss.backward()
+        res.append(dict(
+            loss=float(loss.detach()),
+            grads={n: p.grad.cpu() for n, p in model.named_parameters()},
+            bufs={n: v.cpu() for n, v in model.named_buffers()},
+            launches=[k.launches - n for k, n in zip(kernels, before)]))
+    cpu, gpu = res
+    require(all(n > 0 for n in gpu["launches"]),
+            f"tiny train step on the card launched {gpu['launches']} of "
+            f"{[k.name for k in kernels]}")
+    # The card runs the fused embedding (clamped Chebyshev plus the
+    # sentinel delta, 2e-4 from the unfused path the CPU takes), and the
+    # pairwise-distance diagonal is the square root of a cancellation
+    # residual that the two devices' matmuls leave differently (~1e-3 on
+    # the diagonal's embedding, as in check_tiny_bank): loss 1e-4
+    # relative, each gradient leaf 5e-3 relative plus 1e-6 absolute for
+    # the leaves that are zero in exact arithmetic, BatchNorm statistics
+    # 1e-4.
+    loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_errs = {n: float((gpu["grads"][n] - w).norm() / w.norm().clamp_min(
+        1e-30)) for n, w in cpu["grads"].items()}
+    bad = [n for n, w in cpu["grads"].items()
+           if not float((gpu["grads"][n] - w).norm())
+           <= 5e-3 * float(w.norm()) + 1e-6]
+    buf_err = max(float((gpu["bufs"][n] - v).abs().max())
+                  for n, v in cpu["bufs"].items())
+    worst = sorted(grad_errs.items(), key=lambda kv: -kv[1])[:3]
+    log(f"tiny train step, card against CPU: loss {gpu['loss']:.6f} / "
+        f"{cpu['loss']:.6f} (rel {loss_err:.3g}), worst gradient leaves "
+        f"{worst}, BatchNorm statistics max abs err {buf_err:.3g}, "
+        f"launches {dict(zip([k.name for k in kernels], gpu['launches']))}")
+    require(loss_err <= 1e-4, f"tiny train step: loss rel err {loss_err}")
+    require(not bad, f"tiny train step: gradient leaves off: {bad}")
+    require(buf_err <= 1e-4, f"tiny train step: BatchNorm stats {buf_err}")
+    return dict(loss_rel_err=loss_err, worst_grad_rel_err=worst,
+                bn_max_abs_err=buf_err)
+
+
+
 def synthetic_scene(rng, H=480, W=640):
     """A few flat-coloured shapes on a textured background, their depth
     (0.6-0.8 m on a 1.0 m plane) and LINEMOD-like intrinsics."""
@@ -720,7 +956,7 @@ def phase_ism(dev):
     pc = (rng.randn(1, cfg.pointcloud_sample_num, 3) * 0.04).astype(
         np.float32)
     frames = [synthetic_scene(rng) for _ in range(3)]
-    kernels = all_kernels()[2:]
+    kernels = all_kernels()[2:5]
     torch.cuda.synchronize()
 
     for k in kernels:
@@ -821,6 +1057,98 @@ def phase_profile(runner, request):
                         warm=2)
 
 
+def phase_train(dev):
+    """The PEM training slice at full width: the Solver that
+    `train_cli --synthetic` builds (default_pem_config, bfloat16 compute
+    with float32 parameters and optimizer state, batch 28 of
+    SyntheticPoseDataset), 2 warm-up and 3 timed steps, each timed with
+    CUDA events; counters zeroed before and read after."""
+    import torch
+
+    from sam6d_tpu_torch.ops import fps, geo_embed, scatter_rows
+    from sam6d_tpu_torch.provider.training_dataset import collate
+    from sam6d_tpu_torch.train import state as ts
+    from sam6d_tpu_torch.train import train_cli
+
+    warm, timed = 2, 3
+    # The checkpoint (1.2 GB) goes to the ignored build directory, not to
+    # chiprun_out.
+    log_dir = ROOT / "build" / "train_log"
+    args = train_cli.parse_args([
+        "--synthetic", "--steps", str(warm + timed), "--epochs", "1",
+        "--batch_size", "28", "--log_dir", str(log_dir)])
+    t0 = time.perf_counter()
+    solver = train_cli.build_solver(args)
+    state = solver.state
+    log(f"full-width PEM training state (bf16 compute, float32 parameters, "
+        f"batch {solver.cfg.batch_size}): {time.perf_counter() - t0:.1f} s")
+    kernels = [fps.KERNEL, geo_embed.KERNEL, geo_embed.KERNEL_BWD,
+               scatter_rows.KERNEL]
+    steps = []
+    inner = solver.step_fn
+    last_end = []
+
+    def timed_step(st, batch, generator):
+        # Host time from the end of the previous step to the start of this
+        # one: the Solver waiting for the prefetcher's next batch.
+        t_in = time.perf_counter()
+        wait = (t_in - last_end[-1]) * 1e3 if last_end else None
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        m = inner(st, batch, generator)
+        e.record()
+        e.synchronize()
+        steps.append(dict(ms=s.elapsed_time(e), data_wait_ms=wait, **m))
+        last_end.append(time.perf_counter())
+        log(f"train step {len(steps)}: {steps[-1]['ms']:.1f} ms, loss "
+            f"{m['loss']:.4f}, grad_norm {m['grad_norm']:.4g}, "
+            f"update_skipped {m['update_skipped']:.0f}, waited for data "
+            f"{wait if wait is None else round(wait, 2)} ms")
+        return m
+
+    solver.step_fn = timed_step
+    before = [p.detach().clone() for p in state.model.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    solver.solve(1)
+    wall_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    changed = sum(int(not torch.equal(a, p)) for a, p in
+                  zip(before, state.model.parameters()))
+    del before
+    require(len(steps) == warm + timed and state.step == warm + timed,
+            f"train: {len(steps)} steps ran")
+    for k in kernels:
+        require(launches[k.name] > 0, f"{k.name} never ran on the train path")
+    for m in steps:
+        require(all(math.isfinite(v) for k, v in m.items()
+                    if k != "data_wait_ms"),
+                f"train: non-finite metric in {m}")
+    require(state.optimizer.count > 0 and changed > 0,
+            f"train: no update applied ({state.optimizer.count} updates, "
+            f"{changed} parameters changed)")
+    ms = statistics.median(m["ms"] for m in steps[warm:])
+    log(f"train slice: {warm} warm-up + {timed} timed steps, median "
+        f"{ms:.1f} ms a step ({1e3 * solver.cfg.batch_size / ms:.1f} "
+        f"samples/s), peak memory {peak / 2**30:.2f} GiB, "
+        f"{state.optimizer.count} updates applied, {changed} parameter "
+        f"tensors changed, launches {launches}, wall {wall_s:.1f} s")
+    ds = solver.dataloader.dataset
+    batch = collate([ds[i] for i in range(solver.cfg.batch_size)])
+    profile = profile_once(
+        lambda: ts.train_step(state, batch, solver.generator), "train step")
+    return dict(steps=steps, warmup=warm, step_ms=ms,
+                samples_per_s=1e3 * solver.cfg.batch_size / ms,
+                peak_bytes=peak, updates_applied=state.optimizer.count,
+                params_changed=changed, launches=launches, wall_s=wall_s,
+                profile=profile)
+
+
+
 def main():
     import torch
 
@@ -830,7 +1158,13 @@ def main():
         return 1
     sys.path.insert(0, str(ROOT))
     import sam6d_tpu_torch  # noqa: F401  (fails outside the repository)
-    from sam6d_tpu_torch.ops import decode_tail, flash_rpe, fps, geo_embed
+    from sam6d_tpu_torch.ops import (
+        decode_tail,
+        flash_rpe,
+        fps,
+        geo_embed,
+        scatter_rows,
+    )
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -841,9 +1175,12 @@ def main():
     geo_rows = check_geo_embed(dev)
     rpe_rows, flash_rows = check_attention(dev)
     tail_rows = check_decode_tail(dev)
+    bwd_rows = check_geo_embed_bwd(dev)
+    scatter_rows_ = check_scatter_rows(dev)
     check_tiny_bank(dev)
     check_tiny_ism(dev)
     tiny_bf16 = check_tiny_bf16(dev)
+    tiny_train = check_tiny_train_step(dev)
     log("== phase 3: PEM serving slice at full width")
     runner, request, sl = phase_slice(dev)
     sl["profile"] = phase_profile(runner, request)
@@ -852,6 +1189,10 @@ def main():
     log("== phase 4: ISM serving slice at full width")
     frame, ism = phase_ism(dev)
     ism["profile"] = profile_once(frame, "ISM frame (opened thresholds)")
+    del frame
+    torch.cuda.empty_cache()
+    log("== phase 5: PEM training slice at full width")
+    train = phase_train(dev)
 
     def entry(kernel, rows, main_row, launches, library=None):
         main = rows[main_row]
@@ -872,13 +1213,17 @@ def main():
     # of one instance (PEM request); a windowed SAM block (28 of the 32
     # K4 launches of a frame); DINOv2-L at a bucket of 256 proposals; the
     # AMG tail over all 1024 prompts, the plain version there in 16 calls
-    # of 64 prompts.
+    # of 64 prompts; the embedding backward and the S = 64 scatter at the
+    # training shapes.  K1 and K2 count the serving path's launches (their
+    # slice) and carry the training path's as launches_train.
     report = {"kernels": [
-        entry(fps.KERNEL, fps_rows, 0, sl["launches"],
-              "none: no PyTorch call computes farthest point sampling"),
-        entry(geo_embed.KERNEL, geo_rows, 0, sl["launches"],
-              "none: no single PyTorch call computes the Chebyshev "
-              "embedding with its max over k"),
+        dict(entry(fps.KERNEL, fps_rows, 0, sl["launches"],
+                   "none: no PyTorch call computes farthest point sampling"),
+             launches_train=train["launches"][fps.KERNEL.name]),
+        dict(entry(geo_embed.KERNEL, geo_rows, 0, sl["launches"],
+                   "none: no single PyTorch call computes the Chebyshev "
+                   "embedding with its max over k"),
+             launches_train=train["launches"][geo_embed.KERNEL.name]),
         entry(flash_rpe.KERNEL_RPE, rpe_rows, 0, ism["launches"],
               "F.scaled_dot_product_attention with the dense (BH, N, N) "
               "rel-pos bias as attn_mask, built beforehand, not timed"),
@@ -888,13 +1233,18 @@ def main():
                    "none: no PyTorch call computes the tail statistics"),
              plain_note="plain version in 16 calls of 64 prompts (one "
                         "call materializes several GB at P=1024)"),
+        entry(geo_embed.KERNEL_BWD, bwd_rows, 0, train["launches"],
+              "none: no single PyTorch call computes these gradients"),
+        entry(scatter_rows.KERNEL, scatter_rows_, 0, train["launches"],
+              "Tensor.index_add_ of float32 rows at flat indices, both "
+              "built beforehand, not timed"),
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "build_s": build_s, "tiny_bf16": tiny_bf16, "slice": sl, "ism": ism,
-         **report}, indent=1))
+         "build_s": build_s, "tiny_bf16": tiny_bf16, "tiny_train": tiny_train,
+         "slice": sl, "ism": ism, "train": train, **report}, indent=1))
     log(smi)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -125,6 +125,45 @@ def default_pem_config() -> PEMConfig:
     return PEMConfig()
 
 
+@dataclass(frozen=True)
+class OptimConfig:
+    """Training optimizer and schedule (reference config/base.yaml:3-14).
+
+    Adam with a warmup-cosine schedule; `grad_clip` clips by the global
+    norm (0 disables); `spike_skip_norm` drops the whole update, optimizer
+    state included, when the gradient norm is non-finite or not below it
+    (0 disables; `skip_nonfinite` then guards non-finite norms alone);
+    `accum_steps` averages that many microbatches per update (1 disables).
+    """
+
+    lr: float = 1e-4
+    betas: tuple = (0.5, 0.999)
+    eps: float = 1e-6
+    weight_decay: float = 0.0
+    max_iters: int = 600_000
+    warmup_factor: float = 0.001
+    warmup_iters: int = 1000
+    grad_clip: float = 1.0
+    skip_nonfinite: bool = True
+    spike_skip_norm: float = 150.0
+    accum_steps: int = 1
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training loop settings (reference config/base.yaml:58-104)."""
+
+    batch_size: int = 28
+    training_epoch: int = 15
+    iters_to_print: int = 50
+    rd_seed: int = 1
+    img_size: int = 224
+    n_sample_observed_point: int = 2048
+    n_sample_model_point: int = 2048
+    n_sample_template_point: int = 5000
+    optim: OptimConfig = field(default_factory=OptimConfig)
+
+
 
 # -- ISM (reference Instance_Segmentation_Model/configs) ---------------------
 

@@ -46,8 +46,19 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis with running statistics
-    (flax nn.BatchNorm(use_running_average=True), eps 1e-5)."""
+    """BatchNorm over the last axis, flax's `nn.BatchNorm(momentum=0.9,
+    epsilon=1e-5)`.
+
+    Eval (`train=False`) normalises with the running statistics.  Train
+    normalises with the batch statistics over every other axis, in
+    float32, with the biased variance `mean(x^2) - mean(x)^2` (clamped at
+    0), and updates the running statistics in place:
+    `running = momentum * running + (1 - momentum) * batch`.  (PyTorch's
+    `F.batch_norm` keeps the unbiased variance and the opposite momentum
+    convention, so it is not used.)  Each train call makes one update, in
+    call order."""
+
+    momentum = 0.9
 
     def __init__(self, dim: int, dtype=torch.float32, eps: float = 1e-5):
         super().__init__()
@@ -58,9 +69,21 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
 
-    def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+    def forward(self, x, train: bool = False):
+        xf = x.float()
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean) * mul + self.bias
         return y.to(self.dtype)
 
 

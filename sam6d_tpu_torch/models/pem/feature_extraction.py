@@ -28,7 +28,8 @@ class ViTAE(nn.Module):
             raise NotImplementedError(f"up_type {cfg.up_type}")
         self.cfg = cfg
         self.vit = ViT(cfg.patch_size, cfg.embed_dim, cfg.depth,
-                       cfg.num_heads, cfg.mlp_ratio, cfg.img_size, dtype)
+                       cfg.num_heads, cfg.mlp_ratio, cfg.img_size, dtype,
+                       remat=cfg.remat)
         n_taps = 4 if cfg.use_pyramid_feat else 1
         self.output_upscaling = Dense(n_taps * cfg.embed_dim,
                                       16 * cfg.out_dim, dtype=dtype)
@@ -57,6 +58,17 @@ class ViTEncoder(nn.Module):
         super().__init__()
         self.rgb_net = ViTAE(cfg, dtype)
         self.npoint = npoint
+
+    def forward(self, pts, rgb, rgb_choose, dense_po, dense_fo):
+        """Observed-crop branch and radius normalisation (reference
+        feature_extraction.py:133-136): pts (B, N, 3), rgb (B, S, S, 3),
+        rgb_choose (B, N), template cloud dense_po (B, M, 3) and features
+        dense_fo (B, M, C) -> (dense_pm, dense_fm, dense_po, dense_fo,
+        radius), the clouds divided by the template radius + 1e-6."""
+        dense_fm = self.get_img_feats(rgb, rgb_choose)
+        radius = torch.linalg.vector_norm(dense_po, dim=2).amax(dim=1)
+        denom = radius[:, None, None] + 1e-6
+        return pts / denom, dense_fm, dense_po / denom, dense_fo, radius
 
     def get_img_feats(self, rgb, choose):
         """Per-pixel features (B, N, C) at `choose` (B, N), as a bilinear

@@ -142,6 +142,8 @@ class GeometricStructureEmbedding(nn.Module):
         row_delta = delta(d_idx[:, :1, :])  # (B, 1, N, d)
         col_delta = delta(d_idx[:, :, :1])  # (B, N, 1, d)
         row_delta[:, :, 0] = 0.0
+        # In place on the kernel's output: legal under autograd because
+        # its Function saves only its inputs for the backward (K3).
         out[:, :1, :] += row_delta
         out[:, :, :1] += col_delta
         return out

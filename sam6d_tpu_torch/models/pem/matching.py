@@ -1,12 +1,17 @@
 """Coarse and fine point-matching heads and their pose solvers.
 
 Counterpart of `sam6d_tpu/models/pem/matching.py` (reference
-coarse_point_matching.py, fine_point_matching.py, model_utils.py:204-341),
-inference only.  Geometric contractions run in float32 (the package
-disables TF32).
+coarse_point_matching.py, fine_point_matching.py, model_utils.py:157-341).
+With `train=True` both heads return an attention map per block, the fine
+stage starts from the ground-truth pose perturbed by `aug_pose_noise` and
+skips its pose solve, and the positional encoding's BatchNorms use and
+update batch statistics.  Geometric contractions run in float32 (the
+package disables TF32).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -147,6 +152,46 @@ def compute_fine_Rt(atten, pts1, pts2, model_pts=None,
     return R, t, pose_score * fg1.mean(dim=1)
 
 
+def _rot(c, s, axis: int):
+    """(B,) cosines and sines -> (B, 3, 3) rotations about x, y or z."""
+    o, z = torch.ones_like(c), torch.zeros_like(c)
+    rows = {
+        0: (o, z, z, z, c, -s, z, s, c),
+        1: (c, z, s, z, o, z, -s, z, c),
+        2: (c, -s, z, s, c, z, z, z, o),
+    }[axis]
+    return torch.stack(rows, dim=-1).reshape(-1, 3, 3)
+
+
+def aug_pose_noise(gt_r, gt_t, noise=None, generator=None,
+                   std_rots=(15.0, 10.0, 5.0, 1.25, 1.0), max_rot=45.0,
+                   sel_std_trans=(0.2, 0.2, 0.2), max_trans=0.8):
+    """Perturb the ground-truth pose for the fine stage's training init
+    (reference model_utils.py:157-201).
+
+    noise: optional (std_rot, n_rot (B, 3), n_trans (B, 3)): the rotation
+    std in degrees, picked from `std_rots`, and two standard-normal draws;
+    else they are drawn from `generator`.  Returns (R, t)."""
+    B, dev = gt_r.shape[0], gt_r.device
+    if noise is None:
+        pick = torch.randint(len(std_rots), (1,), generator=generator,
+                             device=dev)
+        std_rot = torch.tensor(std_rots, device=dev)[pick]
+        n_rot = torch.randn(B, 3, generator=generator, device=dev)
+        n_trans = torch.randn(B, 3, generator=generator, device=dev)
+    else:
+        std_rot, n_rot, n_trans = noise
+    angles = torch.clamp(n_rot * std_rot, -max_rot, max_rot) * (math.pi / 180.0)
+    c, s = torch.cos(angles), torch.sin(angles)
+    rand_rot = (_rot(c[:, 0], s[:, 0], 2) @ _rot(c[:, 1], s[:, 1], 0)
+                @ _rot(c[:, 2], s[:, 2], 1))
+    std_t = torch.tensor(sel_std_trans, device=dev)
+    rand_trans = torch.clamp(n_trans * std_t, -max_trans, max_trans)
+    t = gt_t + rand_trans
+    t = torch.cat([t[:, :2], torch.clamp_min(t[:, 2:], 1e-6)], dim=1)
+    return gt_r @ rand_rot, t
+
+
 class CoarsePointMatching(nn.Module):
     def __init__(self, cfg: CoarseMatchingConfig, dtype=torch.float32):
         super().__init__()
@@ -160,25 +205,37 @@ class CoarsePointMatching(nn.Module):
                 ("self", "cross"), cfg.hidden_dim, cfg.num_heads, dtype))
 
     def forward(self, p1, f1, geo1, p2, f2, geo2, radius, model_pts,
-                dist_field=None, uniforms=None, generator=None):
+                dist_field=None, uniforms=None, generator=None,
+                train: bool = False, gt_r=None, gt_t=None, noise=None):
+        """-> (init_R, init_t, attention maps).  Serving solves the coarse
+        pose from the last block's map (hypothesis draws from `uniforms`
+        or `generator`); training returns every block's map and the
+        ground-truth pose (gt_t radius-normalised) perturbed by
+        `aug_pose_noise` (draws from `noise` or `generator`)."""
         cfg = self.cfg
         B = f1.shape[0]
         bg = self.bg_token.expand(B, 1, -1).to(self.dtype)
         f1 = torch.cat([bg, self.in_proj(f1)], dim=1)
         f2 = torch.cat([bg, self.in_proj(f2)], dim=1)
         geo_both = torch.cat([geo1, geo2], dim=0)
+        attens = []
         for i in range(cfg.nblock):
             f1, f2 = getattr(self, f"transformers_{i}")(
                 f1, geo1, f2, geo2, embeddings_both=geo_both)
-        atten = compute_feature_similarity(
-            self.out_proj(f1), self.out_proj(f2), cfg.sim_type, cfg.temp,
-            cfg.normalize_feat,
-        )
+            if train or i == cfg.nblock - 1:
+                attens.append(compute_feature_similarity(
+                    self.out_proj(f1), self.out_proj(f2), cfg.sim_type,
+                    cfg.temp, cfg.normalize_feat,
+                ))
+        if train:
+            init_R, init_t = aug_pose_noise(gt_r, gt_t, noise, generator)
+            return init_R, init_t, attens
         norm_model = model_pts / (radius[:, None, None] + 1e-6)
-        return compute_coarse_Rt(
-            atten, p1, p2, norm_model, cfg.nproposal1, cfg.nproposal2,
+        init_R, init_t = compute_coarse_Rt(
+            attens[-1], p1, p2, norm_model, cfg.nproposal1, cfg.nproposal2,
             dist_field=dist_field, uniforms=uniforms, generator=generator,
         )
+        return init_R, init_t, attens
 
 
 class SharedMLP(nn.Module):
@@ -197,10 +254,11 @@ class SharedMLP(nn.Module):
     def first_dense(self, x):
         return self.dense_0(x)
 
-    def tail(self, z):
-        x = F.relu(self.bn_0(z))
+    def tail(self, z, train: bool = False):
+        x = F.relu(self.bn_0(z, train))
         for i in range(1, self.n):
-            x = F.relu(getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x)))
+            x = F.relu(getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x),
+                                                train))
         return x
 
 
@@ -220,7 +278,7 @@ class PositionalEncoding(nn.Module):
         self.mlp2 = SharedMLP(6, [32, 64, 128], dtype)
         self.mlp3 = Dense(256, out_dim, dtype=dtype)
 
-    def forward(self, pts):
+    def forward(self, pts, train: bool = False):
         d2 = pairwise_distance(pts, pts)
         zeros = torch.zeros_like(pts)
 
@@ -229,7 +287,7 @@ class PositionalEncoding(nn.Module):
             a = mlp.first_dense(torch.cat([pts, pts], dim=-1))
             c = mlp.first_dense(torch.cat([pts, zeros], dim=-1))
             z = gather_neighbors(a, idx) - c[:, :, None, :]
-            return mlp.tail(z).amax(dim=2)
+            return mlp.tail(z, train).amax(dim=2)
 
         f1 = grouped_mlp(self.mlp1, self.r1, self.nsample1)
         f2 = grouped_mlp(self.mlp2, self.r2, self.nsample2)
@@ -255,8 +313,8 @@ class FinePointMatching(nn.Module):
     def _bg(self, B):
         return self.bg_token.expand(B, 1, -1).to(self.dtype)
 
-    def compute_pe(self, pts):
-        return self.PE(pts)
+    def compute_pe(self, pts, train: bool = False):
+        return self.PE(pts, train)
 
     def compute_f2_init(self, f2, pe_p2):
         """Template-side input tokens (bg | in_proj(f2) + pe): every factor
@@ -265,22 +323,37 @@ class FinePointMatching(nn.Module):
                          dim=1)
 
     def forward(self, p1, f1, geo1, fps_idx1, p2, geo2, fps_idx2, radius,
-                model_pts, init_R, init_t, f2_init):
+                model_pts, init_R, init_t, f2_init=None, f2=None,
+                train: bool = False):
+        """-> (pred_R, pred_t, pose_score, attention maps).  The template
+        side comes precomputed (`f2_init`, the serving bank) or from its
+        features `f2`, through the positional encoding of p2 after that of
+        the observed side (the BatchNorms' update order in training).
+        Training returns every block's map and the init pose, unsolved."""
         cfg = self.cfg
         B = p1.shape[0]
         p1_ = (p1 - init_t[:, None, :]) @ init_R
-        f1 = torch.cat([self._bg(B), self.in_proj(f1) + self.PE(p1_)], dim=1)
+        f1 = torch.cat([self._bg(B), self.in_proj(f1) + self.PE(p1_, train)],
+                       dim=1)
+        if f2_init is None:
+            f2_init = self.compute_f2_init(f2, self.PE(p2, train))
         f2 = f2_init.to(self.dtype)
         geo_both = torch.cat([geo1, geo2], dim=0)
+        attens = []
         for i in range(cfg.nblock):
             f1, f2 = getattr(self, f"transformers_{i}")(
                 f1, geo1, fps_idx1, f2, geo2, fps_idx2,
                 embeddings_both=geo_both)
-        atten = compute_feature_similarity(
-            self.out_proj(f1), self.out_proj(f2), cfg.sim_type, cfg.temp,
-            cfg.normalize_feat,
-        )
+            if train or i == cfg.nblock - 1:
+                attens.append(compute_feature_similarity(
+                    self.out_proj(f1), self.out_proj(f2), cfg.sim_type,
+                    cfg.temp, cfg.normalize_feat,
+                ))
+        if train:
+            pred_t = init_t * (radius[:, None] + 1e-6)
+            return init_R, pred_t, torch.zeros(B, dtype=p1.dtype,
+                                               device=p1.device), attens
         norm_model = model_pts / (radius[:, None, None] + 1e-6)
-        pred_R, pred_t, score = compute_fine_Rt(atten, p1, p2, norm_model,
-                                                cfg.dis_thres)
-        return pred_R, pred_t * (radius[:, None] + 1e-6), score
+        pred_R, pred_t, score = compute_fine_Rt(attens[-1], p1, p2,
+                                                norm_model, cfg.dis_thres)
+        return pred_R, pred_t * (radius[:, None] + 1e-6), score, attens

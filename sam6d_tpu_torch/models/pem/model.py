@@ -1,11 +1,13 @@
-"""PEM: the two-stage background-token point-matching pose estimator,
-serving path.
+"""PEM: the two-stage background-token point-matching pose estimator.
 
-Counterpart of `sam6d_tpu/models/pem/model.py`: `get_obj_feats`
-(template onboarding), `make_template_bank` (every template-static
-quantity, once per object) and `forward_with_bank` (per request).
-Submodule names follow the JAX parameter tree, so `params.py` carries
-JAX weights across by name.
+Counterpart of `sam6d_tpu/models/pem/model.py`: serving through
+`get_obj_feats` (template onboarding), `make_template_bank` (every
+template-static quantity, once per object) and `forward_with_bank` (per
+request), all under `torch.inference_mode`; training through `forward`
+(the JAX `__call__` with `train=True`) and `train_forward` (template
+features extracted in the same graph), which record gradients.  Submodule names
+follow the JAX parameter tree, so `params.py` carries JAX weights across
+by name.
 """
 
 from __future__ import annotations
@@ -114,13 +116,13 @@ class PEM(nn.Module):
         )
         geo_m = self.geo_embedding(self._with_bg(sparse_pm))
         geo_o = tile(bank["geo_o"])
-        init_R, init_t = self.coarse_point_matching(
+        init_R, init_t, _ = self.coarse_point_matching(
             sparse_pm, sparse_fm, geo_m, tile(bank["sparse_po"]),
             tile(bank["sparse_fo"]), geo_o, radius, model_pts,
             dist_field=bank["dist_field"], uniforms=uniforms,
             generator=generator,
         )
-        pred_R, pred_t, score = self.fine_point_matching(
+        pred_R, pred_t, score, _ = self.fine_point_matching(
             dense_pm, dense_fm, geo_m, fps_idx_m, tile(bank["dense_po_n"]),
             geo_o, tile(bank["fps_idx_o"]), radius, model_pts, init_R, init_t,
             f2_init=tile(bank["fine_f2"]),
@@ -133,3 +135,71 @@ class PEM(nn.Module):
             "init_t": init_t,
             "radius": radius,
         }
+
+    def forward(self, pts, rgb, rgb_choose, dense_po, dense_fo, gt_r, gt_t,
+                generator=None, noise=None):
+        """The JAX `PEM.__call__(train=True)`: observed crop and template
+        cloud in one pass, without a bank, recording gradients.
+
+        pts (B, N, 3) observed cloud (metric), rgb (B, S, S, 3),
+        rgb_choose (B, N), dense_po (B, N, 3) FPS'd template cloud
+        (metric), dense_fo (B, N, C), gt_r (B, 3, 3), gt_t (B, 3) metric.
+        The observed and template sides run FPS and the geometric
+        embedding as one 2B batch.  Returns every block's attention maps
+        and the normalised clouds the loss reads; the fine stage starts
+        from the perturbed ground truth (draws from `noise`, see
+        `aug_pose_noise`, or `generator`).
+        """
+        dense_pm, dense_fm, dense_po_n, dense_fo_n, radius = (
+            self.feature_extraction(pts, rgb, rgb_choose, dense_po, dense_fo))
+        B = dense_pm.shape[0]
+        both_pts = torch.cat([dense_pm, dense_po_n], dim=0).contiguous()
+        both_feats = torch.cat([dense_fm, dense_fo_n.to(dense_fm.dtype)],
+                               dim=0)
+        sparse_both, sparse_feat_both, fps_idx_both = sample_pts_feats(
+            both_pts, both_feats, self.cfg.coarse_npoint, return_index=True)
+        geo_both = self.geo_embedding(self._with_bg(sparse_both))
+        sparse_pm, sparse_po = sparse_both[:B], sparse_both[B:]
+        sparse_fm, sparse_fo = sparse_feat_both[:B], sparse_feat_both[B:]
+        fps_idx_m, fps_idx_o = fps_idx_both[:B], fps_idx_both[B:]
+        geo_m, geo_o = geo_both[:B], geo_both[B:]
+        init_R, init_t, coarse_attens = self.coarse_point_matching(
+            sparse_pm, sparse_fm, geo_m, sparse_po, sparse_fo, geo_o, radius,
+            None, generator=generator, train=True, gt_r=gt_r,
+            gt_t=gt_t / (radius[:, None] + 1e-6), noise=noise,
+        )
+        pred_R, pred_t, score, fine_attens = self.fine_point_matching(
+            dense_pm, dense_fm, geo_m, fps_idx_m, dense_po_n, geo_o,
+            fps_idx_o, radius, None, init_R, init_t, f2=dense_fo_n,
+            train=True,
+        )
+        return {
+            "pred_R": pred_R,
+            "pred_t": pred_t,
+            "pred_pose_score": score,
+            "init_R": init_R,
+            "init_t": init_t,
+            "radius": radius,
+            "coarse_attens": coarse_attens,
+            "fine_attens": fine_attens,
+            "sparse_pm": sparse_pm,
+            "sparse_po": sparse_po,
+            "dense_pm": dense_pm,
+            "dense_po": dense_po_n,
+        }
+
+    def train_forward(self, pts, rgb, rgb_choose, tem_rgb, tem_pts,
+                      tem_choose, gt_r, gt_t, generator=None, noise=None):
+        """Training forward with the template features extracted in the
+        same graph: tem_rgb (B, T, S, S, 3), tem_pts (B, T, Np, 3) and
+        tem_choose (B, T, Np) of T views per sample; their FPS'd union
+        (fine_npoint points) is the template cloud and the model cloud."""
+        B, T, S = tem_rgb.shape[:3]
+        feat = self.feature_extraction.get_img_feats(
+            tem_rgb.reshape(B * T, S, S, 3), tem_choose.reshape(B * T, -1))
+        feat = feat.reshape(B, -1, feat.shape[-1])
+        all_pts = tem_pts.reshape(B, -1, 3).contiguous()
+        dense_po, dense_fo = sample_pts_feats(all_pts, feat,
+                                              self.cfg.fine_npoint)
+        return self(pts, rgb, rgb_choose, dense_po, dense_fo, gt_r, gt_t,
+                    generator=generator, noise=noise)

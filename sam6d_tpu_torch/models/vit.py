@@ -14,6 +14,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sam6d_tpu_torch.models.layers import Dense, LayerNorm, f32_matmul
 from sam6d_tpu_torch.ops.flash_rpe import flash_attention
@@ -97,10 +98,16 @@ class ViTBlock(nn.Module):
 
 class ViT(nn.Module):
     """Encoder returning the final-norm'd outputs of blocks
-    [d-1, d-n-1, d-2n-1, d-3n-1] (n = d // 4), ascending."""
+    [d-1, d-n-1, d-2n-1, d-3n-1] (n = d // 4), ascending.
+
+    remat: while gradients are recorded, each block keeps only its input
+    and runs its forward again in the backward (`torch.utils.checkpoint`;
+    the JAX package's `nn.remat`): about one more forward of work for
+    O(depth) less activation memory.  Values are unchanged."""
 
     def __init__(self, patch_size=16, embed_dim=768, depth=12, num_heads=12,
-                 mlp_ratio=4.0, img_size=224, dtype=torch.float32):
+                 mlp_ratio=4.0, img_size=224, dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
         n_patches = (img_size // patch_size) ** 2
         self.patch_embed = PatchEmbed(3, embed_dim, patch_size, dtype)
@@ -113,6 +120,7 @@ class ViT(nn.Module):
         self.depth = depth
         self.embed_dim = embed_dim
         self.dtype = dtype
+        self.remat = remat
 
     def forward(self, x, out_indices: Sequence[int] | None = None):
         """x (B, H, W, 3) -> list of (B, 1 + N_patches, D) taps."""
@@ -126,8 +134,10 @@ class ViT(nn.Module):
             n = self.depth // 4
             out_indices = sorted(self.depth - 1 - i * n for i in range(4))
         taps = []
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.depth):
-            x = getattr(self, f"blocks_{i}")(x)
+            block = getattr(self, f"blocks_{i}")
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             if i in out_indices:
                 taps.append(self.norm(x))
         return taps

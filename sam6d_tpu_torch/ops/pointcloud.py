@@ -1,12 +1,15 @@
 """Point-cloud gathers and ball query, channel-last.
 
-Counterpart of `sam6d_tpu/ops/pointcloud.py` (forward only): features
-are (B, N, C) and indices int64 tensors of any trailing shape.
+Counterpart of `sam6d_tpu/ops/pointcloud.py`: features are (B, N, C) and
+indices int64 tensors of any trailing shape.  `gather_neighbors` carries
+its own backward (`ops/scatter_rows.py`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from sam6d_tpu_torch.ops.scatter_rows import scatter_rows
 
 
 def batched_row_gather(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -27,9 +30,32 @@ def group_points(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return batched_row_gather(feats, idx)
 
 
-# The fine-stage positional encoding only runs this gather forward in
-# serving; its backward (a row scatter-add) belongs to training.
-gather_neighbors = batched_row_gather
+class _GatherNeighbors(torch.autograd.Function):
+    """Row gather whose backward is the row scatter-add `scatter_rows`
+    (the CUDA kernel K7 on the card), cast back to the cotangent's dtype,
+    as the JAX `gather_neighbors` custom VJP (ops/pointcloud.py:84-100).
+    The indices get no gradient."""
+
+    @staticmethod
+    def forward(ctx, feats, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_targets = feats.shape[1]
+        return batched_row_gather(feats, idx)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (idx,) = ctx.saved_tensors
+        B, C = idx.shape[0], dy.shape[-1]
+        df = scatter_rows(idx.reshape(B, -1), dy.reshape(B, -1, C).contiguous(),
+                          ctx.n_targets)
+        return df.to(dy.dtype), None
+
+
+def gather_neighbors(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Neighbourhood gather for the fine-stage positional encoding:
+    feats (B, N, C), idx (B, ...) int64 -> (B, ..., C), differentiable in
+    feats through the row scatter-add."""
+    return _GatherNeighbors.apply(feats, idx.long())
 
 
 def _first_k_true(mask: torch.Tensor, k: int) -> torch.Tensor:

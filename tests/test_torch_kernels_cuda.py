@@ -1,5 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
+TF32 stays off (the package disables it at import), so every float32
+matmul of a plain version runs in full float32.
+
 Marked `cuda`: without a card every test skips.  On a machine with one:
     python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest
 (the first test builds the kernels with nvcc; `--noconftest` leaves out
@@ -19,6 +22,7 @@ from sam6d_tpu_torch.ops import decode_tail as dt
 from sam6d_tpu_torch.ops import flash_rpe as fr
 from sam6d_tpu_torch.ops import fps as fps_mod
 from sam6d_tpu_torch.ops import geo_embed as ge
+from sam6d_tpu_torch.ops import scatter_rows as sr
 from sam6d_tpu_torch.params import init_random_
 
 pytestmark = pytest.mark.cuda
@@ -31,7 +35,8 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,N,npoint", [(2, 2048, 196), (1, 20000, 512)])
+@pytest.mark.parametrize("B,N,npoint", [(2, 2048, 196), (1, 20000, 512),
+                                        (2, 10000, 2048)])
 def test_fps_kernel_matches_plain_index_for_index(dev, B, N, npoint):
     g = torch.Generator(device=dev).manual_seed(N)
     pts = torch.randn(B, N, 3, generator=g, device=dev)
@@ -221,3 +226,107 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
     inp["w2"] = inp["w2"].T.contiguous()
     with pytest.raises(ValueError):
         dt.decode_tail_stats_cuda(**inp)
+
+
+def _bwd_inputs(dev, B, N, d, dtype, ties="none", seed=0):
+    d_idx, a_idx, _, Ma, _ = _geo_inputs(dev, B, N, d, dtype, seed)
+    if ties == "some":  # k=1 repeats k=0; k=2 too on every other row
+        a_idx[..., 1] = a_idx[..., 0]
+        a_idx[:, ::2, :, 2] = a_idx[:, ::2, :, 0]
+    elif ties == "all":
+        a_idx = a_idx[..., :1].expand_as(a_idx).contiguous()
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    cot = torch.randn(B, N, N, d, generator=g, device=dev).to(dtype)
+    return d_idx, a_idx.contiguous(), Ma, cot
+
+
+@pytest.mark.parametrize("ties", ["none", "some", "all"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,d", [(2, 33, 32), (1, 197, 256)])
+def test_geo_embed_bwd_kernel_matches_plain(dev, ties, dtype, B, N, d):
+    # The kernel rebuilds each e_k with the forward kernel's fmaf chain,
+    # the plain version with the plain forward's matmul: where two e_k
+    # lie within float32 rounding of each other they may crown different
+    # winners, which moves dMa by a few terms of its millions: 1e-3.
+    # With all three k equal every channel is an exact three-way tie on
+    # both sides, and only the order of the float32 sums differs: 1e-5.
+    rtol = 1e-5 if ties == "all" else 1e-3
+    args = (*_bwd_inputs(dev, B, N, d, dtype, ties), 20.0, 12.0)
+    got = ge.geo_embed_maxk_bwd_cuda(*args)
+    again = ge.geo_embed_maxk_bwd_cuda(*args)
+    want = ge.geo_embed_maxk_bwd_plain(*args, 40)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)  # a fixed order of sums: the same bits
+        assert float((a - w).norm() / w.norm()) <= rtol
+
+
+def test_scatter_rows_kernel_matches_plain(dev):
+    # float32 sums of ~64 unit-size terms per row in the order the atomics
+    # land: 1e-4 from any other order, and between two launches.
+    B, N, S, C = 4, 2048, 64, 32
+    g = torch.Generator(device=dev).manual_seed(0)
+    idx = torch.randint(0, N, (B, N * S), generator=g, device=dev)
+    idx[torch.rand(B, N * S, generator=g, device=dev) < 0.05] = -1
+    dy = torch.randn(B, N * S, C, generator=g, device=dev).bfloat16()
+    got = sr.scatter_rows_cuda(idx, dy, N)
+    again = sr.scatter_rows_cuda(idx, dy, N)
+    want = sr.scatter_rows_plain(idx, dy, N)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got, again, atol=1e-4, rtol=0)
+    dy32 = dy.float()
+    torch.testing.assert_close(sr.scatter_rows_cuda(idx, dy32, N),
+                               sr.scatter_rows_plain(idx, dy32, N),
+                               atol=1e-4, rtol=0)
+
+
+def test_training_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    d_idx, a_idx, Ma, cot = _bwd_inputs(dev, 1, 9, 32, torch.float32)
+    with pytest.raises(ValueError):  # g in another dtype than Ma
+        ge.geo_embed_maxk_bwd_cuda(d_idx, a_idx, Ma, cot.bfloat16(), 20.0,
+                                   12.0)
+    with pytest.raises(ValueError):  # k = 2
+        ge.geo_embed_maxk_bwd_cuda(d_idx, a_idx[..., :2].contiguous(), Ma,
+                                   cot, 20.0, 12.0)
+    with pytest.raises(ValueError):  # d = 48
+        ge.geo_embed_maxk_bwd_cuda(d_idx, a_idx, Ma[:, :16].repeat(1, 3),
+                                   cot[..., :16].repeat(1, 1, 1, 3), 20.0,
+                                   12.0)
+    idx = torch.zeros(1, 8, dtype=torch.long, device=dev)
+    dy = torch.zeros(1, 8, 4, device=dev)
+    with pytest.raises(ValueError):  # int32 indices
+        sr.scatter_rows_cuda(idx.int(), dy, 4)
+    with pytest.raises(ValueError):  # odd channel count
+        sr.scatter_rows_cuda(idx, dy[..., :3].contiguous(), 4)
+    flat = torch.zeros(8 * 4 + 1, device=dev)
+    with pytest.raises(ValueError):  # 4 bytes off the 8-byte alignment
+        sr.scatter_rows_cuda(idx, flat[1:].view(1, 8, 4), 4)
+
+
+def test_embedding_gradient_reaches_the_projections_through_k3(dev):
+    """A loss backpropagated through the embedding on the card gives
+    proj_d and proj_a the gradient of the whole fused op (K3), not only of
+    the sentinel rows: the same gradients as the CPU's plain backward."""
+    cfg = GeoEmbeddingConfig(hidden_dim=32, fused="on")
+    mod = GeometricStructureEmbedding(cfg)
+    init_random_(mod, torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(2)
+    pts = torch.rand(2, 33, 3, generator=g) * 2 - 1
+    pts[:, 0] = 100.0
+    cot = torch.randn(2, 33, 33, 32, generator=g)
+    grads = []
+    for device in ("cpu", dev):
+        mod = mod.to(device)
+        mod.zero_grad()
+        before = ge.KERNEL_BWD.launches
+        (mod(pts.to(device)) * cot.to(device)).sum().backward()
+        if device != "cpu":
+            assert ge.KERNEL_BWD.launches == before + 1
+        grads.append({n: p.grad.detach().cpu().clone()
+                      for n, p in mod.named_parameters()})
+    cpu, card = grads
+    for n, w in cpu.items():
+        # Fused on both devices; the diagonal's distance index differs
+        # between the two devices' matmuls (see the test above): 1e-3.
+        assert float((card[n] - w).norm() / w.norm()) <= 1e-3, n
