@@ -11,7 +11,9 @@ process per source, all at once), then:
 2. every kernel against its plain PyTorch version on the card at the
    shapes the serving paths give it, with CUDA-event timings (kernel and
    plain version in turns, medians) and, where one PyTorch call computes
-   the same function, that call's time as a yardstick; plus the
+   the same function, that call's time as a yardstick (K4/K5 also at
+   ragged shapes, through the wrapper and as one bare launch, that
+   launch also timed alone in bursts); plus the
    tiny-config PEM template bank, a tiny-config ISM frame (float32) and
    bfloat16 SAM-encoder and DINOv2 blocks at the full model's head dims
    on the card against the same computed on the CPU;
@@ -26,8 +28,9 @@ process per source, all at once), then:
    weights from a seed): onboarding of one object's 42 template views,
    then three 480 x 640 frames of a synthetic scene, one at the default
    thresholds and two with the IoU, stability and confidence thresholds
-   opened.  Counters zeroed before and read after, as in phase 3; one
-   more frame runs under torch.profiler;
+   opened.  Counters zeroed before and read after, as in phase 3 (32 K4
+   launches a frame, 24 K5 launches a DINOv2 pass); one more frame runs
+   under torch.profiler, which also reports K4's and K5's device time;
 5. the PEM training slice at full width: the Solver that
    `train_cli --synthetic` builds (default_pem_config, bfloat16 compute,
    float32 parameters and Adam state, batch 28 of synthetic samples),
@@ -35,6 +38,9 @@ process per source, all at once), then:
    metrics of each step; counters zeroed before and read after, K1, K2,
    K3 (the embedding backward) and K7 (the row scatter-add) required.
    One more step runs under torch.profiler.
+
+`--parent-flash FLASH_RPE_CU` also times an earlier commit's K4/K5
+source in phase 2's turns (`load_parent_flash`).
 
 Any failure exits non-zero.  The last lines are the nvidia-smi name and
 power limit, {"kernels": [...]}, and
@@ -95,9 +101,11 @@ def rel_err(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
-def time_in_turns(fns: dict, reps: int, warmup: int = 1):
-    """Median ms of each callable, run in turns a, b, b, a, ...; CUDA
-    events around every call."""
+def time_in_turns(fns: dict, reps: int, warmup: int = 1, burst: int = 1):
+    """Median ms of one call of each callable, run in turns a, b, b, a,
+    ...; CUDA events around every call, or around `burst` calls in a row
+    (then divided): a burst keeps the card fed while the host enqueues
+    the next call, so it times the device's work alone."""
     import torch
 
     for fn in fns.values():
@@ -111,10 +119,11 @@ def time_in_turns(fns: dict, reps: int, warmup: int = 1):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fns[n]()
+            for _ in range(burst):
+                fns[n]()
             end.record()
             end.synchronize()
-            times[n].append(start.elapsed_time(end))
+            times[n].append(start.elapsed_time(end) / burst)
     return {n: statistics.median(v) for n, v in times.items()}
 
 
@@ -154,14 +163,59 @@ def phase_environment():
     t0 = time.perf_counter()
     _kernels.build_all(kernels)
     build_s = time.perf_counter() - t0
+    ptxas = {}
     for k in kernels:
         k.lib()
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {k.name}: {line.strip()}")
+        ptxas.update(ptxas_summary(k.build_log))
+    for fn, info in ptxas.items():
+        log(f"  {fn}: {info}")
     log(f"built {len(kernels)} kernels from "
         f"{len({k.source for k in kernels})} sources in {build_s:.1f} s")
-    return smi, name, build_s
+    return smi, name, build_s, ptxas
+
+
+def entry_name(mangled: str) -> str:
+    """A kernel's name from its mangled one: the last component of the
+    nested name, with integer and bool template arguments spelled out
+    (_ZN..20flash_fwd_mma_kernelILi5ELi1ELb1EEEv.. ->
+    flash_fwd_mma_kernel<5,1,1>); other template arguments are dropped."""
+    import re
+
+    if not mangled.startswith("_ZN"):
+        return mangled
+    rest, name = mangled[3:], mangled
+    while (m := re.match(r"\d+", rest)):
+        n = int(m.group(0))
+        name = rest[m.end():m.end() + n]
+        rest = rest[m.end() + n:]
+    t = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    if t:
+        name += "<" + ",".join(re.findall(r"L[ib](\d+)E", t.group(1))) + ">"
+    return name
+
+
+def ptxas_summary(build_log: str) -> dict:
+    """Registers and spill bytes of each entry function in nvcc's
+    `-Xptxas -v` log, by `entry_name`."""
+    import re
+
+    out, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = entry_name(m.group(1))
+            out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def check_fps(dev):
@@ -396,13 +450,79 @@ def phase_slice(dev):
         request_ms=req_ms, request_launches=req_launches, launches=launches)
 
 
-def check_attention(dev):
+def load_parent_flash(source):
+    """The `flash_attn_fwd` of another `flash_rpe.cu` with the earlier
+    interface (per-token tables QRh / QRw in float32 and the scale as
+    arguments), built by nvcc into build/parent_flash/, for a comparison
+    in the same process.  Returns run(q, k, v, tables, hw, out)."""
+    import ctypes
+
+    import torch
+
+    from sam6d_tpu_torch.ops._kernels import (
+        NVCC_FLAGS,
+        _nvcc,
+        current_stream,
+        ptr,
+    )
+
+    out_dir = ROOT / "build" / "parent_flash"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / "libflash_rpe_parent.so"
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(source)],
+                   check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib)).flash_attn_fwd
+    V, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [V] * 6 + [I] * 5 + [ctypes.c_float, I, V]
+    fn.restype = I
+
+    def run(q, k, v, tables, hw, out):
+        BH, N, d = q.shape
+        qrh, qrw = tables if tables is not None else (None, None)
+        err = fn(ptr(q), ptr(k), ptr(v), ptr(qrh), ptr(qrw), ptr(out), BH,
+                 N, d, hw[0], hw[1], 1.0 / math.sqrt(d),
+                 int(q.dtype == torch.bfloat16), current_stream(q.device))
+        require(err == 0, f"parent flash_attn_fwd: cudaError {err}")
+        return out
+
+    return run
+
+
+def earlier_checks(q, k, v):
+    """The checks of q, k, v that the K4 / K5 wrappers of the per-token-
+    table interface made before each launch, so that an earlier kernel's
+    wrapper path is timed with the host work it did."""
+    import torch
+
+    from sam6d_tpu_torch.ops import flash_rpe as fr
+    from sam6d_tpu_torch.ops._kernels import check_cuda
+
+    require(q.dtype in (torch.float32, torch.bfloat16), "flash dtype")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda(t, name, q.dtype, ndim=3)
+    require(k.shape == q.shape and v.shape == q.shape
+            and q.shape[-1] in fr.HEAD_DIMS
+            and not any(t.data_ptr() % 16 for t in (q, k, v)),
+            "flash attention inputs")
+
+
+def check_attention(dev, parent=None):
     """K4 at the SAM encoder's windowed (400, 196, 80) and global
     (16, 4096, 80) shapes and K5 at the DINOv2-L shapes (128 and 4096
-    batch-heads of 257 x 64), bfloat16.  Yardstick: one call of
-    F.scaled_dot_product_attention on the same inputs (for K4 with the
-    dense (BH, N, N) rel-pos bias as attn_mask, built beforehand and not
-    timed)."""
+    batch-heads of 257 x 64), bfloat16, plus ragged shapes checked
+    without timing: K4 on a 7 x 9 grid at d = 80 and on 14 x 14 at
+    d = 64, K5 at N = 300.  Each shape is checked through the wrapper and
+    through one bare launch into a prepared output.  Times: the wrapper
+    (`ms`, events around each call, as in earlier runs), the kernel alone
+    (`kernel_ms`, a burst of bare launches on prepared inputs), the plain
+    version, and as the yardstick one F.scaled_dot_product_attention call
+    on the same inputs, per call and in a burst (for K4 with the dense
+    (BH, N, N) rel-pos bias as attn_mask, built beforehand and not
+    timed); for K4 also both without the bias, in bursts, which says what
+    the bias costs each.  Every bf16 instance is checked and timed alone
+    (`impl_kernel_ms`).  With `parent` (load_parent_flash) the earlier
+    kernel runs in the same turns: its wrapper path (the same checks, the
+    tables, then the launch) and its bare launch on prepared tables."""
     import torch
     import torch.nn.functional as F
 
@@ -418,12 +538,15 @@ def check_attention(dev):
     rtol = 1.6e-2
     rows = {"rpe": [], "plain": []}
     cases = (("rpe", 400, 14, 14, 80, 10), ("rpe", 16, 64, 64, 80, 5),
-             ("plain", 128, 1, 257, 64, 10), ("plain", 4096, 1, 257, 64, 5))
+             ("plain", 128, 1, 257, 64, 10), ("plain", 4096, 1, 257, 64, 5),
+             ("rpe", 8, 7, 9, 80, 0), ("rpe", 64, 14, 14, 64, 0),
+             ("plain", 64, 1, 300, 64, 0))
     for kind, BH, h, w, d, reps in cases:
         N = h * w
         g = torch.Generator(device=dev).manual_seed(BH + N)
         q, k, v = (torch.randn(BH, N, d, generator=g, device=dev).bfloat16()
                    for _ in range(3))
+        out = torch.empty_like(q)
         # SDPA takes (batch, heads, L, E): the batch-heads as heads.
         q4, k4, v4 = (t[None] for t in (q, k, v))
         if kind == "rpe":
@@ -433,41 +556,110 @@ def check_attention(dev):
                   * 0.1).bfloat16()
             kern = lambda: fr.flash_rpe_attention_cuda(q, k, v, rh, rw,
                                                        (h, w))
+            bare = lambda: fr.launch(fr.KERNEL_RPE, q, k, v, rh, rw, (h, w),
+                                     out)
             plain = lambda: fr.rpe_attention_plain(q, k, v, rh, rw, (h, w))
             qrh, qrw = fr.rel_pos_tables(q, rh, rw, (h, w))
+            tables = (qrh.contiguous(), qrw.contiguous())
             mask = (qrh[..., :, None] + qrw[..., None, :]).reshape(
                 1, BH, N, N).bfloat16()
+            del qrh, qrw
             lib = lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=mask)
+            # What the bias costs: the same inputs without it, through the
+            # K5 instance and through SDPA (its flash route, no mask).
+            no_bias = {
+                "kernel": lambda: fr.launch(fr.KERNEL_PLAIN, q, k, v, None,
+                                            None, (0, 0), out),
+                "library": lambda: F.scaled_dot_product_attention(q4, k4,
+                                                                  v4)}
             # q k^T and P v, the bias tables' two products, the bias add.
             flops = 4 * BH * N * N * d + 2 * BH * N * d * (2 * h + 2 * w - 2) \
                 + 2 * BH * N * N
             nbytes = 4 * BH * N * d * 2 + (2 * h + 2 * w - 2) * d * 2
             shape = f"({BH},{N},{d}) bf16, grid {h}x{w}"
         else:
+            rh = rw = tables = None
+            no_bias = {}
             kern = lambda: fr.flash_attention_cuda(q, k, v)
+            bare = lambda: fr.launch(fr.KERNEL_PLAIN, q, k, v, None, None,
+                                     (0, 0), out)
             plain = lambda: fr.attention_plain(q, k, v)
             lib = lambda: F.scaled_dot_product_attention(q4, k4, v4)
             flops = 4 * BH * N * N * d
             nbytes = 4 * BH * N * d * 2
             shape = f"({BH},{N},{d}) bf16"
-        got, want = kern().float(), plain().float()
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
+        # The other bf16 instances (bare launches), checked alike and timed
+        # beside the one the wrappers choose.
+        others = {impl: (lambda impl=impl: fr.launch(
+            fr.KERNEL_RPE if kind == "rpe" else fr.KERNEL_PLAIN, q, k, v, rh,
+            rw, (h, w), out, impl))
+            for impl in ("mma1", "mma2", "wgmma")
+            if impl != "wgmma" or d in (64, 80)}
+        want = plain().float()
         out_std = float(want.std())
         atol = 0.05 * out_std
-        require(bool(((got - want).abs() <= atol + rtol * want.abs()).all()),
-                f"flash {kind} {shape}: max abs err {err} (atol {atol}, "
-                f"rtol {rtol})")
-        t = time_in_turns({"kernel": kern, "plain": plain, "library": lib},
-                          reps)
-        b_ms, b_by = bound(nbytes, flops, "bfloat16")
-        rows[kind].append(dict(shape=shape, max_abs_err=err, out_std=out_std,
-                               atol=atol, rtol=rtol, ms=t["kernel"],
-                               plain_ms=t["plain"], library_ms=t["library"],
-                               bound_ms=b_ms, bound_by=b_by))
-        log(f"flash_{kind} {rows[kind][-1]}")
-        del got, want
+        errs = {}
+        for route, fn in (("wrapper", kern), ("kernel", bare),
+                          *others.items()):
+            got = fn().float()
+            torch.cuda.synchronize()
+            errs[route] = float((got - want).abs().max())
+            require(bool(((got - want).abs() <= atol + rtol * want.abs())
+                         .all()),
+                    f"flash {kind} {shape} ({route}): max abs err "
+                    f"{errs[route]} (atol {atol}, rtol {rtol})")
+            del got
+        del want
+        row = dict(shape=shape, max_abs_err=max(errs.values()),
+                   max_abs_err_by_route=errs, out_std=out_std, atol=atol,
+                   rtol=rtol)
+        if reps:
+            par_w = par_k = None
+            if parent is not None:
+                p_out = torch.empty_like(q)
+
+                def par_w():
+                    # The earlier wrapper: its checks of q, k, v, the
+                    # tables built by PyTorch ops, then its launch.
+                    earlier_checks(q, k, v)
+                    tabs = None if tables is None else tuple(
+                        t.contiguous()
+                        for t in fr.rel_pos_tables(q, rh, rw, (h, w)))
+                    return parent(q, k, v, tabs, (h, w), torch.empty_like(q))
+                par_k = lambda: parent(q, k, v, tables, (h, w), p_out)
+                got = par_w().float()
+                ref = kern().float()
+                torch.cuda.synchronize()
+                row["parent_vs_new_max_abs"] = float((got - ref).abs().max())
+                del got, ref
+            per_call = {"kernel": kern, "plain": plain, "library": lib}
+            bursts = {"kernel": bare, "library": lib, **others,
+                      **{f"{n}_no_bias": f for n, f in no_bias.items()}}
+            if parent is not None:
+                per_call["parent"] = par_w
+                bursts["parent"] = par_k
+            t = time_in_turns(per_call, reps)
+            tb = time_in_turns(bursts, reps, burst=20)
+            row["impl_kernel_ms"] = {i: tb[i] for i in others}
+            if no_bias:
+                row["no_bias_burst_ms"] = {n: tb[f"{n}_no_bias"]
+                                           for n in no_bias}
+            b_ms, b_by = bound(nbytes, flops, "bfloat16")
+            row.update(ms=t["kernel"], kernel_ms=tb["kernel"],
+                       plain_ms=t["plain"], library_ms=t["library"],
+                       library_burst_ms=tb["library"], bound_ms=b_ms,
+                       bound_by=b_by)
+            if parent is not None:
+                row.update(parent_ms=t["parent"],
+                           parent_kernel_ms=tb["parent"])
+        else:
+            row.update(ms=None, bound_ms=None)
+        rows[kind].append(row)
+        log(f"flash_{kind} {row}")
+        del q, k, v, out, q4, k4, v4, tables
+        if kind == "rpe":
+            del mask
     return rows["rpe"], rows["plain"]
 
 
@@ -1003,6 +1195,15 @@ def phase_ism(dev):
     launches = {k.name: k.launches for k in kernels}
     for k in kernels:
         require(launches[k.name] > 0, f"{k.name} never ran on the ISM path")
+    # Per frame: 32 SAM blocks (K4) and 24 DINOv2-L blocks a descriptor
+    # pass (K5); the frames with opened thresholds have proposals, so a
+    # pass.
+    for i, r in enumerate(results):
+        lc = r["launches"]
+        require(lc["flash_rpe_attention"] == 32
+                and lc["flash_attention"] % 24 == 0
+                and (i == 0 or lc["flash_attention"] > 0),
+                f"ISM frame {i} launched K4 / K5 {lc}")
     require(results[1]["detections"] > 0 and results[2]["detections"] > 0,
             "no detection with opened thresholds")
     log(f"ISM onboarding (1 object x {T} views): {onboard_ms:.1f} ms, "
@@ -1045,8 +1246,29 @@ def profile_once(fn, what: str, warm: int = 1):
         f"{n_device} device kernels and copies")
     for r in top[:12]:
         log(f"  {r['device_ms']:8.3f} ms  {r['calls']:5d}x  {r['name']}")
+    flash = flash_device_time(rows)
+    log(f"  K4 / K5 device time: {flash}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                device_events=n_device, top=top)
+                device_events=n_device, top=top, flash=flash)
+
+
+def flash_device_time(rows):
+    """Device ms and launches of K4 (the instances with the bias) and K5
+    (without) among profiler rows (name, device us, calls): the kernel
+    names are `flash_fwd_mma_kernel<DK, MT, BIAS>` (bf16) and
+    `flash_fwd_kernel<DV, BIAS>` (float32), demangled or not."""
+    out = {"flash_rpe_attention": [0.0, 0], "flash_attention": [0.0, 0]}
+    for key, us, n in rows:
+        if "flash_fwd" not in key:
+            continue
+        if "flash_fwd_mma_kernelI" in key or "flash_fwd_kernelI" in key:
+            bias = "Lb1E" in key  # mangled: the bool argument
+        else:
+            bias = key.split(">")[0].rstrip().endswith("true")
+        k = "flash_rpe_attention" if bias else "flash_attention"
+        out[k][0] += us / 1e3
+        out[k][1] += n
+    return {k: dict(device_ms=ms, launches=n) for k, (ms, n) in out.items()}
 
 
 def phase_profile(runner, request):
@@ -1150,8 +1372,16 @@ def phase_train(dev):
 
 
 def main():
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-flash", metavar="FLASH_RPE_CU",
+                    help="also time the K4/K5 kernels of this flash_rpe.cu "
+                         "(an earlier commit's, with the per-token-table "
+                         "interface) in the same turns as phase 2's")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA card", file=sys.stderr)
@@ -1169,11 +1399,13 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     log("== phase 1: environment and build")
-    smi, name, build_s = phase_environment()
+    smi, name, build_s, ptxas = phase_environment()
+    parent = load_parent_flash(args.parent_flash) if args.parent_flash \
+        else None
     log("== phase 2: kernels against their plain versions")
     fps_rows = check_fps(dev)
     geo_rows = check_geo_embed(dev)
-    rpe_rows, flash_rows = check_attention(dev)
+    rpe_rows, flash_rows = check_attention(dev, parent)
     tail_rows = check_decode_tail(dev)
     bwd_rows = check_geo_embed_bwd(dev)
     scatter_rows_ = check_scatter_rows(dev)
@@ -1203,7 +1435,8 @@ def main():
             "launches": launches[kernel.name],
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["max_abs_err"] is not None),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "ms": main["ms"], "kernel_ms": main.get("kernel_ms"),
+            "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main.get("library_ms"),
             "library": library, "shape": main["shape"], "by_shape": rows,
@@ -1243,7 +1476,7 @@ def main():
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "build_s": build_s, "tiny_bf16": tiny_bf16, "tiny_train": tiny_train,
+         "build_s": build_s, "ptxas": ptxas, "tiny_bf16": tiny_bf16, "tiny_train": tiny_train,
          "slice": sl, "ism": ism, "train": train, **report}, indent=1))
     log(smi)
     print(json.dumps(report))

@@ -37,6 +37,7 @@ class Kernel:
         self.signatures = signatures  # C function -> ctypes argtypes
         self.launches = 0
         self._lib = None
+        self._fns = {}  # C function name -> its ctypes function
         self.build_log = ""
 
     @property
@@ -61,7 +62,10 @@ class Kernel:
         return self._lib
 
     def call(self, fn: str, *args) -> None:
-        err = getattr(self.lib(), fn)(*args)
+        f = self._fns.get(fn)
+        if f is None:
+            f = self._fns[fn] = getattr(self.lib(), fn)
+        err = f(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}: {fn} failed with cudaError {err}")
 
@@ -98,15 +102,22 @@ def build_all(kernels) -> None:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
-def ptr(t) -> ctypes.c_void_p:
-    """Device pointer of a tensor (None -> a null pointer)."""
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def ptr(t) -> int | None:
+    """Device pointer of a tensor, as a `c_void_p` argument takes it (None
+    -> a null pointer)."""
+    return None if t is None else t.data_ptr()
 
 
-def current_stream(device) -> ctypes.c_void_p:
+def current_stream(device) -> int:
+    """The current CUDA stream of `device`, as a `c_void_p` argument: the
+    raw handle, as torch's own generated kernels read it, without building
+    a `torch.cuda.Stream` (a few microseconds of host time a launch)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_cuda(t, name: str, dtype, ndim: int | None = None) -> None:

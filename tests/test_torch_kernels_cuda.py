@@ -147,28 +147,68 @@ def _qkv(dev, BH, N, d, dtype, seed=0, scale=1.0):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("BH,h,w,d", [
-    (3, 8, 8, 16), (16, 14, 14, 80), (2, 64, 64, 80), (1, 7, 9, 32)])
-def test_flash_rpe_kernel_matches_plain(dev, dtype, BH, h, w, d):
-    q, k, v = _qkv(dev, BH, h * w, d, dtype)
-    g = torch.Generator(device=dev).manual_seed(1)
+def _impls(dtype, d):
+    """The kernel instances a bare launch can ask for: float32 has one;
+    bf16 has mma.sync with one or two m-tiles a warp and, at d = 64 and
+    80, the wgmma instance."""
+    if dtype == torch.float32:
+        return ["auto"]
+    return ["auto", "mma1", "mma2"] + (["wgmma"] if d in (64, 80) else [])
+
+
+def _tables(dev, h, w, d, dtype, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
     rh = (torch.randn(2 * h - 1, d, generator=g, device=dev) * 0.1).to(dtype)
     rw = (torch.randn(2 * w - 1, d, generator=g, device=dev) * 0.1).to(dtype)
-    got = fr.flash_rpe_attention_cuda(q, k, v, rh, rw, (h, w)).float()
-    want = fr.rpe_attention_plain(q, k, v, rh, rw, (h, w)).float()
-    torch.cuda.synchronize()
-    _assert_attention_close(got, want, dtype)
+    return rh, rw
 
 
+# Ragged shapes: N = 63 and 196 (not multiples of the 64-key tile, nor of
+# 16 queries), a rectangular 7 x 9 grid (odd w: key pairs that wrap to the
+# next grid row), 5 x 13 at d = 128, d = 64 with a bias; the global 64 x 64
+# grid (two query tiles a warp in bf16).
+@pytest.mark.parametrize("route", ["wrapper", "launch"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("BH,N,d", [(8, 257, 64), (4, 64, 16), (2, 300, 128)])
-def test_flash_attention_kernel_matches_plain(dev, dtype, BH, N, d):
+@pytest.mark.parametrize("BH,h,w,d", [
+    (3, 8, 8, 16), (16, 14, 14, 80), (2, 64, 64, 80), (1, 7, 9, 32),
+    (8, 7, 9, 80), (4, 14, 14, 64), (2, 5, 13, 128)])
+def test_flash_rpe_kernel_matches_plain(dev, route, dtype, BH, h, w, d):
+    q, k, v = _qkv(dev, BH, h * w, d, dtype)
+    rh, rw = _tables(dev, h, w, d, dtype)
+    want = fr.rpe_attention_plain(q, k, v, rh, rw, (h, w)).float()
+    if route == "wrapper":
+        got = fr.flash_rpe_attention_cuda(q, k, v, rh, rw, (h, w))
+        torch.cuda.synchronize()
+        _assert_attention_close(got.float(), want, dtype)
+        return
+    # Bare launches into a prepared output, as chip_smoke times them, of
+    # every bf16 instance that takes this head dim.
+    for impl in _impls(dtype, d):
+        got = fr.launch(fr.KERNEL_RPE, q, k, v, rh, rw, (h, w),
+                        torch.empty_like(q), impl)
+        torch.cuda.synchronize()
+        _assert_attention_close(got.float(), want, dtype)
+
+
+@pytest.mark.parametrize("route", ["wrapper", "launch"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,N,d", [(8, 257, 64), (4, 64, 16), (2, 300, 128),
+                                    (3, 300, 64), (2, 1100, 80), (2, 63, 80)])
+def test_flash_attention_kernel_matches_plain(dev, route, dtype, BH, N, d):
+    # N = 300: not a multiple of the 8-key n-tile; N = 1100: two query
+    # tiles a warp in bf16.
     q, k, v = _qkv(dev, BH, N, d, dtype)
-    got = fr.flash_attention_cuda(q, k, v).float()
     want = fr.attention_plain(q, k, v).float()
-    torch.cuda.synchronize()
-    _assert_attention_close(got, want, dtype)
+    if route == "wrapper":
+        got = fr.flash_attention_cuda(q, k, v)
+        torch.cuda.synchronize()
+        _assert_attention_close(got.float(), want, dtype)
+        return
+    for impl in _impls(dtype, d):
+        got = fr.launch(fr.KERNEL_PLAIN, q, k, v, None, None, (0, 0),
+                        torch.empty_like(q), impl)
+        torch.cuda.synchronize()
+        _assert_attention_close(got.float(), want, dtype)
 
 
 def test_flash_attention_survives_large_logits(dev):
@@ -178,6 +218,47 @@ def test_flash_attention_survives_large_logits(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_rpe_survives_large_logits(dev, dtype):
+    # Logits of q x 40 (spread ~50) plus the bias: the exponentials amplify
+    # the logits' rounding, 1e-4 / 1e-3 in float32 as for K5; bf16 at its
+    # stated tolerance (q x 40 rounded to bf16 on both sides alike).
+    q, k, v = _qkv(dev, 4, 196, 80, torch.float32, scale=0.3)
+    rh, rw = _tables(dev, 14, 14, 80, dtype)
+    q, k, v = (q * 40.0).to(dtype), k.to(dtype), v.to(dtype)
+    got = fr.flash_rpe_attention_cuda(q, k, v, rh, rw, (14, 14)).float()
+    want = fr.rpe_attention_plain(q, k, v, rh, rw, (14, 14)).float()
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+    else:
+        _assert_attention_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_rpe_refuses_tables_it_does_not_take(dev, dtype):
+    q, k, v = _qkv(dev, 2, 7 * 9, 32, dtype)
+    rh, rw = _tables(dev, 7, 9, 32, dtype)
+    hw = (7, 9)
+    bad = {
+        "rows not 2h - 1": (rh[:-1].contiguous(), rw),
+        "width not d": (rh, torch.zeros(17, 16, device=dev, dtype=dtype)),
+        "grid swapped": (rw, rh),
+        "dtype not q's": (rh.double(), rw),
+        "not contiguous": (rh, torch.zeros(32, 17, device=dev,
+                                           dtype=dtype).T),
+        "on the CPU": (rh.cpu(), rw),
+    }
+    flat = torch.zeros(rw.numel() + 1, device=dev, dtype=dtype)
+    bad["misaligned"] = (rh, flat[1:].view_as(rw).copy_(rw))
+    for why, (a, b) in bad.items():
+        with pytest.raises(ValueError):
+            fr.flash_rpe_attention_cuda(q, k, v, a, b, hw)
+            pytest.fail(why)
+    fr.flash_rpe_attention_cuda(q, k, v, rh, rw, hw)  # the good ones pass
 
 
 def _tail_inputs(dev, P, N, dtype, seed=0):
