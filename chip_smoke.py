@@ -39,9 +39,6 @@ process per source, all at once), then:
    K3 (the embedding backward) and K7 (the row scatter-add) required.
    One more step runs under torch.profiler.
 
-`--parent-flash FLASH_RPE_CU` also times an earlier commit's K4/K5
-source in phase 2's turns (`load_parent_flash`).
-
 Any failure exits non-zero.  The last lines are the nvidia-smi name and
 power limit, {"kernels": [...]}, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -450,63 +447,7 @@ def phase_slice(dev):
         request_ms=req_ms, request_launches=req_launches, launches=launches)
 
 
-def load_parent_flash(source):
-    """The `flash_attn_fwd` of another `flash_rpe.cu` with the earlier
-    interface (per-token tables QRh / QRw in float32 and the scale as
-    arguments), built by nvcc into build/parent_flash/, for a comparison
-    in the same process.  Returns run(q, k, v, tables, hw, out)."""
-    import ctypes
-
-    import torch
-
-    from sam6d_tpu_torch.ops._kernels import (
-        NVCC_FLAGS,
-        _nvcc,
-        current_stream,
-        ptr,
-    )
-
-    out_dir = ROOT / "build" / "parent_flash"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / "libflash_rpe_parent.so"
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(source)],
-                   check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(lib)).flash_attn_fwd
-    V, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [V] * 6 + [I] * 5 + [ctypes.c_float, I, V]
-    fn.restype = I
-
-    def run(q, k, v, tables, hw, out):
-        BH, N, d = q.shape
-        qrh, qrw = tables if tables is not None else (None, None)
-        err = fn(ptr(q), ptr(k), ptr(v), ptr(qrh), ptr(qrw), ptr(out), BH,
-                 N, d, hw[0], hw[1], 1.0 / math.sqrt(d),
-                 int(q.dtype == torch.bfloat16), current_stream(q.device))
-        require(err == 0, f"parent flash_attn_fwd: cudaError {err}")
-        return out
-
-    return run
-
-
-def earlier_checks(q, k, v):
-    """The checks of q, k, v that the K4 / K5 wrappers of the per-token-
-    table interface made before each launch, so that an earlier kernel's
-    wrapper path is timed with the host work it did."""
-    import torch
-
-    from sam6d_tpu_torch.ops import flash_rpe as fr
-    from sam6d_tpu_torch.ops._kernels import check_cuda
-
-    require(q.dtype in (torch.float32, torch.bfloat16), "flash dtype")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_cuda(t, name, q.dtype, ndim=3)
-    require(k.shape == q.shape and v.shape == q.shape
-            and q.shape[-1] in fr.HEAD_DIMS
-            and not any(t.data_ptr() % 16 for t in (q, k, v)),
-            "flash attention inputs")
-
-
-def check_attention(dev, parent=None):
+def check_attention(dev):
     """K4 at the SAM encoder's windowed (400, 196, 80) and global
     (16, 4096, 80) shapes and K5 at the DINOv2-L shapes (128 and 4096
     batch-heads of 257 x 64), bfloat16, plus ragged shapes checked
@@ -519,10 +460,7 @@ def check_attention(dev, parent=None):
     on the same inputs, per call and in a burst (for K4 with the dense
     (BH, N, N) rel-pos bias as attn_mask, built beforehand and not
     timed); for K4 also both without the bias, in bursts, which says what
-    the bias costs each.  Every bf16 instance is checked and timed alone
-    (`impl_kernel_ms`).  With `parent` (load_parent_flash) the earlier
-    kernel runs in the same turns: its wrapper path (the same checks, the
-    tables, then the launch) and its bare launch on prepared tables."""
+    the bias costs each."""
     import torch
     import torch.nn.functional as F
 
@@ -560,7 +498,6 @@ def check_attention(dev, parent=None):
                                      out)
             plain = lambda: fr.rpe_attention_plain(q, k, v, rh, rw, (h, w))
             qrh, qrw = fr.rel_pos_tables(q, rh, rw, (h, w))
-            tables = (qrh.contiguous(), qrw.contiguous())
             mask = (qrh[..., :, None] + qrw[..., None, :]).reshape(
                 1, BH, N, N).bfloat16()
             del qrh, qrw
@@ -573,13 +510,13 @@ def check_attention(dev, parent=None):
                                             None, (0, 0), out),
                 "library": lambda: F.scaled_dot_product_attention(q4, k4,
                                                                   v4)}
-            # q k^T and P v, the bias tables' two products, the bias add.
-            flops = 4 * BH * N * N * d + 2 * BH * N * d * (2 * h + 2 * w - 2) \
+            # q k^T and P v, the per-token tables (h + w dot products a
+            # query: QRh[n, Y] for Y < h, QRw[n, X] for X < w), the bias add.
+            flops = 4 * BH * N * N * d + 2 * BH * N * d * (h + w) \
                 + 2 * BH * N * N
             nbytes = 4 * BH * N * d * 2 + (2 * h + 2 * w - 2) * d * 2
             shape = f"({BH},{N},{d}) bf16, grid {h}x{w}"
         else:
-            rh = rw = tables = None
             no_bias = {}
             kern = lambda: fr.flash_attention_cuda(q, k, v)
             bare = lambda: fr.launch(fr.KERNEL_PLAIN, q, k, v, None, None,
@@ -589,19 +526,11 @@ def check_attention(dev, parent=None):
             flops = 4 * BH * N * N * d
             nbytes = 4 * BH * N * d * 2
             shape = f"({BH},{N},{d}) bf16"
-        # The other bf16 instances (bare launches), checked alike and timed
-        # beside the one the wrappers choose.
-        others = {impl: (lambda impl=impl: fr.launch(
-            fr.KERNEL_RPE if kind == "rpe" else fr.KERNEL_PLAIN, q, k, v, rh,
-            rw, (h, w), out, impl))
-            for impl in ("mma1", "mma2", "wgmma")
-            if impl != "wgmma" or d in (64, 80)}
         want = plain().float()
         out_std = float(want.std())
         atol = 0.05 * out_std
         errs = {}
-        for route, fn in (("wrapper", kern), ("kernel", bare),
-                          *others.items()):
+        for route, fn in (("wrapper", kern), ("kernel", bare)):
             got = fn().float()
             torch.cuda.synchronize()
             errs[route] = float((got - want).abs().max())
@@ -615,33 +544,11 @@ def check_attention(dev, parent=None):
                    max_abs_err_by_route=errs, out_std=out_std, atol=atol,
                    rtol=rtol)
         if reps:
-            par_w = par_k = None
-            if parent is not None:
-                p_out = torch.empty_like(q)
-
-                def par_w():
-                    # The earlier wrapper: its checks of q, k, v, the
-                    # tables built by PyTorch ops, then its launch.
-                    earlier_checks(q, k, v)
-                    tabs = None if tables is None else tuple(
-                        t.contiguous()
-                        for t in fr.rel_pos_tables(q, rh, rw, (h, w)))
-                    return parent(q, k, v, tabs, (h, w), torch.empty_like(q))
-                par_k = lambda: parent(q, k, v, tables, (h, w), p_out)
-                got = par_w().float()
-                ref = kern().float()
-                torch.cuda.synchronize()
-                row["parent_vs_new_max_abs"] = float((got - ref).abs().max())
-                del got, ref
             per_call = {"kernel": kern, "plain": plain, "library": lib}
-            bursts = {"kernel": bare, "library": lib, **others,
+            bursts = {"kernel": bare, "library": lib,
                       **{f"{n}_no_bias": f for n, f in no_bias.items()}}
-            if parent is not None:
-                per_call["parent"] = par_w
-                bursts["parent"] = par_k
             t = time_in_turns(per_call, reps)
             tb = time_in_turns(bursts, reps, burst=20)
-            row["impl_kernel_ms"] = {i: tb[i] for i in others}
             if no_bias:
                 row["no_bias_burst_ms"] = {n: tb[f"{n}_no_bias"]
                                            for n in no_bias}
@@ -650,14 +557,11 @@ def check_attention(dev, parent=None):
                        plain_ms=t["plain"], library_ms=t["library"],
                        library_burst_ms=tb["library"], bound_ms=b_ms,
                        bound_by=b_by)
-            if parent is not None:
-                row.update(parent_ms=t["parent"],
-                           parent_kernel_ms=tb["parent"])
         else:
             row.update(ms=None, bound_ms=None)
         rows[kind].append(row)
         log(f"flash_{kind} {row}")
-        del q, k, v, out, q4, k4, v4, tables
+        del q, k, v, out, q4, k4, v4
         if kind == "rpe":
             del mask
     return rows["rpe"], rows["plain"]
@@ -1372,16 +1276,8 @@ def phase_train(dev):
 
 
 def main():
-    import argparse
-
     import torch
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent-flash", metavar="FLASH_RPE_CU",
-                    help="also time the K4/K5 kernels of this flash_rpe.cu "
-                         "(an earlier commit's, with the per-token-table "
-                         "interface) in the same turns as phase 2's")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA card", file=sys.stderr)
@@ -1400,12 +1296,10 @@ def main():
     torch.cuda.set_device(dev)
     log("== phase 1: environment and build")
     smi, name, build_s, ptxas = phase_environment()
-    parent = load_parent_flash(args.parent_flash) if args.parent_flash \
-        else None
     log("== phase 2: kernels against their plain versions")
     fps_rows = check_fps(dev)
     geo_rows = check_geo_embed(dev)
-    rpe_rows, flash_rows = check_attention(dev, parent)
+    rpe_rows, flash_rows = check_attention(dev)
     tail_rows = check_decode_tail(dev)
     bwd_rows = check_geo_embed_bwd(dev)
     scatter_rows_ = check_scatter_rows(dev)

@@ -78,14 +78,12 @@
 //   loads, QRh at its grid row (shared by the pair when w is even) and QRw
 //   as one float2.  A key's grid row is a multiply and a shift, not a
 //   division.
-// * wgmma: the instance at the end of this file (two warpgroups, Q and P
-//   as register A operands, K and V through no-swizzle descriptors) is
-//   right at every shape but slower than this one at all four main-path
-//   shapes (PERF.md).  Its 64-row warpgroup tiles pad 196 queries to
-//   256 and 257 to 384, and each product is waited for before the
-//   softmax, so nothing overlaps the products inside a warpgroup.  The
-//   serving path keeps mma.sync; the wgmma instance is reached only by
-//   asking for it (impl 3).
+// * wgmma: a warpgroup instance (two warpgroups, Q and P as register A
+//   operands, K and V through no-swizzle descriptors; commit e5c0ce0 of
+//   this file) was right at every shape but slower than this one at all
+//   four main-path shapes (PERF.md).  Its 64-row warpgroup tiles pad 196
+//   queries to 256 and 257 to 384, and each product was waited for before
+//   the softmax, so nothing overlapped the products inside a warpgroup.
 //
 // float32 instance (tiny configurations, tests), `flash_fwd_kernel`: 256
 // threads on the CUDA cores; thread (ty, tx) computes logits of rows
@@ -722,332 +720,6 @@ __global__ void __launch_bounds__(128, (MT == 2 || DK == 8) ? 2 : 3)
     }
 }
 
-// ------------------------------------------------------- bf16, wgmma --
-//
-// The same attention on Hopper's warpgroup products, kept beside the
-// mma.sync instance as its measured alternative (PERF.md; chip_smoke
-// phase 2 times both in the same turns).  Block: two warpgroups of 64
-// query rows (256 threads, 128 rows); K/V tiles in the no-swizzle
-// core-matrix layout [d / 8][64 keys][8] (every 8 x 16-byte core matrix
-// contiguous, which any d fills, d = 80 included), filled by the same
-// cp.async ring; q.k is wgmma m64n64k16 with Q as the register A operand
-// and K's descriptor K-major (LBO 1024 B between the two 8-element halves
-// of a k-step, SBO 128 B between 8-key groups); P.v is wgmma m64n{d}k16
-// with P in registers and V's descriptor MN-major (transposed B: LBO 128 B
-// between 8-key groups, SBO 1024 B between 8-column groups).  Every tile,
-// the ragged last one too, runs the whole 64-key products: the copy
-// zero-fills K and V beyond N, and those logits are set to -inf, so their
-// probabilities are 0.  Each product is issued and waited for before the
-// softmax (no overlap inside a warpgroup).  bf16, d in {64, 80}.
-
-// d (64 x 64, float32) += a (64 x 16, bf16, registers) . B (16 x 64,
-// bf16, shared memory, K-major, descriptor); scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_s64(float (&d)[8][4], const uint32_t (&a)[4],
-    uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-
-// d (64 x 64, float32) += a (64 x 16, bf16, registers) . B (16 x 64,
-// bf16, shared memory, MN-major, descriptor); scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_o64(float (&d)[8][4], const uint32_t (&a)[4],
-    uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-
-// d (64 x 80, float32) += a (64 x 16, bf16, registers) . B (16 x 80,
-// bf16, shared memory, MN-major, descriptor); scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_o80(float (&d)[10][4], const uint32_t (&a)[4],
-    uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39"
-      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void fence_async_shared() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-
-// Descriptor of a no-swizzle (INTERLEAVE) operand: start, LBO, SBO bytes.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
-}
-
-__device__ __forceinline__ void wgmma_o(float (&d)[8][4], const uint32_t (&a)[4], uint64_t x) { wgmma_o64(d, a, x, 1); }
-__device__ __forceinline__ void wgmma_o(float (&d)[10][4], const uint32_t (&a)[4], uint64_t x) { wgmma_o80(d, a, x, 1); }
-
-// rows [row0, row0 + 64) of a (n_rows, D) bf16 matrix into the
-// core-matrix layout dst[D / 8][64][8], zeros beyond n_rows; 256 threads.
-template <int D>
-__device__ __forceinline__ void load_core_async(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0, int n_rows) {
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int i = 0; i < (64 * kChunks + 255) / 256; ++i) {
-    const int idx = threadIdx.x + 256 * i;
-    if (idx >= 64 * kChunks) break;
-    const int r = idx / kChunks;
-    const int c = idx - r * kChunks;
-    const int row = row0 + r;
-    const bool ok = row < n_rows;
-    cp_async16(smem_addr(dst + (c * 64 + r) * 8), src + static_cast<int64_t>(ok ? row : 0) * D + c * 8, ok);
-  }
-}
-
-template <int DK, bool BIAS>
-__global__ void __launch_bounds__(256, 1)
-    flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ rel_h,
-                           const __nv_bfloat16* __restrict__ rel_w, __nv_bfloat16* __restrict__ out,
-                           int N, int h, int w, float scale_log2) {
-  constexpr int D = 16 * DK;
-  constexpr int DN = 2 * DK;
-  constexpr int BQ = 128;
-  constexpr int kTile = kBK * D;  // elements of one K or V tile
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int hs = h + 1, wss = qrw_stride(w);
-  float* sRh = reinterpret_cast<float*>(ring + 4 * kTile);
-  float* sRw = sRh + BQ * hs;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
-  const int sw = (g & 3) << 3;  // QRw's permutation for rows g, g + 8
-  const int wr = (tid >> 5) * 16;  // the warp's first row in the block
-  const int wg0 = (tid >> 7) * 64; // the warpgroup's first row
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int64_t base = static_cast<int64_t>(bh) * N * D;
-  const bool active = q0 + wg0 < N;  // warpgroup-uniform
-  const int n_tiles = (N + kBK - 1) / kBK;
-
-  load_core_async<D>(ring, k + base, 0, N);
-  load_core_async<D>(ring + kTile, v + base, 0, N);
-  cp_async_commit();
-  if (n_tiles > 1) {
-    load_core_async<D>(ring + 2 * kTile, k + base, kBK, N);
-    load_core_async<D>(ring + 3 * kTile, v + base, kBK, N);
-  }
-  cp_async_commit();
-
-  // Q rows as A fragments, straight from global memory.
-  uint32_t qa[1][DK][4];
-  {
-    const int r0 = q0 + wr + g, r1 = r0 + 8;
-    const __nv_bfloat16* p0 = q + base + static_cast<int64_t>(min(r0, N - 1)) * D + 2 * tg;
-    const __nv_bfloat16* p1 = q + base + static_cast<int64_t>(min(r1, N - 1)) * D + 2 * tg;
-#pragma unroll
-    for (int ks = 0; ks < DK; ++ks) {
-      qa[0][ks][0] = r0 < N ? *reinterpret_cast<const uint32_t*>(p0 + ks * 16) : 0u;
-      qa[0][ks][1] = r1 < N ? *reinterpret_cast<const uint32_t*>(p1 + ks * 16) : 0u;
-      qa[0][ks][2] = r0 < N ? *reinterpret_cast<const uint32_t*>(p0 + ks * 16 + 8) : 0u;
-      qa[0][ks][3] = r1 < N ? *reinterpret_cast<const uint32_t*>(p1 + ks * 16 + 8) : 0u;
-    }
-  }
-  if (BIAS && active) {
-    int cy[1][2], cx[1][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int n = q0 + wr + g + 8 * i;
-      cy[0][i] = n < N ? n / w : 0;
-      cx[0][i] = n < N ? n - (n / w) * w : 0;
-    }
-    rel_table<DK, 1>(sRh, hs, 0, rel_h, h, cy, qa, wr, g, tg);
-    rel_table<DK, 1>(sRw, wss, 8, rel_w, w, cx, qa, wr, g, tg);
-    __syncwarp();
-  }
-  const uint32_t wdiv = BIAS ? ((1u << 22) + w - 1) / w : 0u;
-  const bool w_even = (w & 1) == 0;
-  float m_i[2] = {-1e30f, -1e30f}, l_i[2] = {0.0f, 0.0f};
-  float o[DN][4];
-#pragma unroll
-  for (int nd = 0; nd < DN; ++nd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[nd][i] = 0.0f;
-  const float* rh_row[2] = {sRh + (wr + g) * hs, sRh + (wr + g + 8) * hs};
-  const float* rw_row[2] = {sRw + (wr + g) * wss, sRw + (wr + g + 8) * wss};
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    const __nv_bfloat16* sK = ring + 2 * st * kTile;
-    const __nv_bfloat16* sV = sK + kTile;
-    cp_async_wait<1>();
-    fence_async_shared();
-    __syncthreads();
-    if (active) {
-      const int k0 = t * kBK;
-      float s[8][4];
-      const uint32_t kaddr = smem_addr(sK);
-      wg_fence();
-#pragma unroll
-      for (int ks = 0; ks < DK; ++ks)
-        wgmma_s64(s, qa[0][ks], gmma_desc(kaddr + ks * 2048, 1024, 128), ks > 0);
-      wg_commit();
-      wg_wait0();
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) reg_fence(s[nt][i]);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int key = k0 + 8 * nt + 2 * tg;
-          float b0 = 0.0f, b1 = 0.0f;
-          if (BIAS) {
-            int y = static_cast<int>((static_cast<uint32_t>(key) * wdiv) >> 22);
-            const int x = key - y * w;
-            if (w_even) {
-              y = min(y, h - 1);
-              const float2 bw = *reinterpret_cast<const float2*>(rw_row[r] + (x ^ sw));
-              b0 = rh_row[r][y] + bw.x;
-              b1 = rh_row[r][y] + bw.y;
-            } else {
-              int y1 = y, x1 = x + 1;
-              if (x1 == w) { x1 = 0; ++y1; }
-              y = min(y, h - 1);
-              y1 = min(y1, h - 1);
-              b0 = rh_row[r][y] + rw_row[r][x ^ sw];
-              b1 = rh_row[r][y1] + rw_row[r][x1 ^ sw];
-            }
-          }
-          float v0 = fmaf(s[nt][2 * r], scale_log2, b0);
-          float v1 = fmaf(s[nt][2 * r + 1], scale_log2, b1);
-          if (key >= N) v0 = -INFINITY;
-          if (key + 1 >= N) v1 = -INFINITY;
-          s[nt][2 * r] = v0;
-          s[nt][2 * r + 1] = v1;
-          mx = fmaxf(mx, fmaxf(v0, v1));
-        }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m_i[r], mx);
-        const float alpha = fast_exp2(m_i[r] - m_new);
-        m_i[r] = m_new;
-        float sum = 0.0f;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const float p = fast_exp2(s[nt][2 * r + j] - m_new);
-            s[nt][2 * r + j] = p;
-            sum += p;
-          }
-        l_i[r] = l_i[r] * alpha + sum;
-#pragma unroll
-        for (int nd = 0; nd < DN; ++nd) {
-          o[nd][2 * r] *= alpha;
-          o[nd][2 * r + 1] *= alpha;
-        }
-      }
-      uint32_t pa[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      }
-      const uint32_t vaddr = smem_addr(sV);
-#pragma unroll
-      for (int nd = 0; nd < DN; ++nd)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) reg_fence(o[nd][i]);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_o(o, pa[kk], gmma_desc(vaddr + kk * 256, 128, 1024));
-      wg_commit();
-      wg_wait0();
-#pragma unroll
-      for (int nd = 0; nd < DN; ++nd)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) reg_fence(o[nd][i]);
-    }
-    __syncthreads();
-    if (t + 2 < n_tiles) {
-      load_core_async<D>(ring + 2 * st * kTile, k + base, (t + 2) * kBK, N);
-      load_core_async<D>(ring + (2 * st + 1) * kTile, v + base, (t + 2) * kBK, N);
-    }
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-  if (!active) return;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_i[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int row = q0 + wr + g + 8 * r;
-    if (row >= N) continue;
-    const float inv = 1.0f / fmaxf(l, 1e-30f);
-    __nv_bfloat16* orow = out + base + static_cast<int64_t>(row) * D + 2 * tg;
-#pragma unroll
-    for (int nd = 0; nd < DN; ++nd)
-      *reinterpret_cast<uint32_t*>(orow + nd * 8) = pack_bf16(o[nd][2 * r] * inv, o[nd][2 * r + 1] * inv);
-  }
-}
-
 // Lets `kern` take up to `bytes` of dynamic shared memory.  The attribute
 // is set once per device, at the most any call of the instance takes (a
 // launch only checks its own size against it), so a launch makes one
@@ -1064,29 +736,6 @@ cudaError_t allow_smem(Kern kern, size_t bytes, std::atomic<unsigned>& done) {
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
   return err;
 }
-
-template <int DK, bool BIAS>
-int launch_wg(const void* q, const void* k, const void* v, const void* rh, const void* rw, void* out, int BH, int N,
-              int h, int w, cudaStream_t st) {
-  constexpr int D = 16 * DK;
-  auto smem_for = [](int h, int w) {
-    size_t b = sizeof(__nv_bfloat16) * 4 * kBK * D;
-    if (BIAS) b += sizeof(float) * 128 * (h + 1 + qrw_stride(w));
-    return b;
-  };
-  const size_t smem = smem_for(h, w);
-  auto kern = flash_fwd_wgmma_kernel<DK, BIAS>;
-  static std::atomic<unsigned> allowed{0};
-  cudaError_t err = allow_smem(kern, smem_for(kMaxGrid, kMaxGrid), allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + 127) / 128, BH);
-  kern<<<grid, 256, smem, st>>>(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                                static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(rh),
-                                static_cast<const __nv_bfloat16*>(rw), static_cast<__nv_bfloat16*>(out), N, h, w,
-                                kLog2e / sqrtf(static_cast<float>(D)));
-  return static_cast<int>(cudaGetLastError());
-}
-
 
 template <int DK, int MT, bool BIAS>
 int launch_mma(const void* q, const void* k, const void* v, const void* rh,
@@ -1115,33 +764,29 @@ int launch_mma(const void* q, const void* k, const void* v, const void* rh,
   return static_cast<int>(cudaGetLastError());
 }
 
-// impl 0: two m-tiles a warp for the long sequences at d <= 80, one for
-// the 196-token windows, N <= 1024 and d = 128; 1 / 2: that many m-tiles
-// (d = 128: one); 3: the wgmma instance (d in {64, 80}).
+// Two m-tiles a warp for the long sequences at d <= 80 (the global SAM
+// blocks), one for the 196-token windows, N <= 1024 and d = 128.
 template <int DK, bool BIAS>
-int launch_impl(int impl, const void* q, const void* k, const void* v,
-                const void* rh, const void* rw, void* out, int BH, int N,
-                int h, int w, cudaStream_t st) {
-  if (impl == 3) {
-    if (DK != 4 && DK != 5) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_wg<(DK == 4 ? 4 : 5), BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
+int launch_bf16(const void* q, const void* k, const void* v, const void* rh,
+                const void* rw, void* out, int BH, int N, int h, int w,
+                cudaStream_t st) {
+  if constexpr (DK <= 5) {
+    if (N > 1024)
+      return launch_mma<DK, 2, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
   }
-  if (impl == 0) impl = (DK <= 5 && N > 1024) ? 2 : 1;
-  if (DK <= 5 && impl == 2)
-    return launch_mma<DK, (DK <= 5 ? 2 : 1), BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
   return launch_mma<DK, 1, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
 }
 
 template <bool BIAS>
-int dispatch_mma(int d, int impl, const void* q, const void* k, const void* v,
+int dispatch_mma(int d, const void* q, const void* k, const void* v,
                  const void* rh, const void* rw, void* out, int BH, int N,
                  int h, int w, cudaStream_t st) {
   switch (d) {
-    case 16: return launch_impl<1, BIAS>(impl, q, k, v, rh, rw, out, BH, N, h, w, st);
-    case 32: return launch_impl<2, BIAS>(impl, q, k, v, rh, rw, out, BH, N, h, w, st);
-    case 64: return launch_impl<4, BIAS>(impl, q, k, v, rh, rw, out, BH, N, h, w, st);
-    case 80: return launch_impl<5, BIAS>(impl, q, k, v, rh, rw, out, BH, N, h, w, st);
-    case 128: return launch_impl<8, BIAS>(impl, q, k, v, rh, rw, out, BH, N, h, w, st);
+    case 16: return launch_bf16<1, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
+    case 32: return launch_bf16<2, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
+    case 64: return launch_bf16<4, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
+    case 80: return launch_bf16<5, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
+    case 128: return launch_bf16<8, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1189,20 +834,18 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 // q, k, v, out: (BH, N, d) contiguous, float32 or bfloat16 (is_bf16).
 // rel_h (2h - 1, d) and rel_w (2w - 1, d) in q's dtype with N == h * w,
 // or both null for attention without bias.  d in {16, 32, 64, 80, 128};
-// h, w <= 64.  impl (bf16 only): 0 the kernel's choice, 1 / 2 mma.sync
-// with that many 16-row m-tiles a warp, 3 the wgmma instance.  Returns
-// the CUDA error of the launch (0 on success).
+// h, w <= 64.  Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const void* rel_h, const void* rel_w, void* out,
                               int BH, int N, int d, int h, int w, int is_bf16,
-                              int impl, void* stream) {
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bias = rel_h != nullptr;
   if (bias && (h > kMaxGrid || w > kMaxGrid || h * w != N))
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16) {
-    return bias ? dispatch_mma<true>(d, impl, q, k, v, rel_h, rel_w, out, BH, N, h, w, st)
-                : dispatch_mma<false>(d, impl, q, k, v, rel_h, rel_w, out, BH, N, h, w, st);
+    return bias ? dispatch_mma<true>(d, q, k, v, rel_h, rel_w, out, BH, N, h, w, st)
+                : dispatch_mma<false>(d, q, k, v, rel_h, rel_w, out, BH, N, h, w, st);
   }
   return bias ? dispatch_d<true>(d, q, k, v, rel_h, rel_w, out, BH, N, h, w, st)
               : dispatch_d<false>(d, q, k, v, rel_h, rel_w, out, BH, N, h, w, st);

@@ -51,7 +51,11 @@ def window_unpartition(x: torch.Tensor, window: int, pad_hw, hw):
 
 class WindowAttention(nn.Module):
     """Attention over a (h, w) token grid with the decomposed rel-pos
-    bias, optionally within window_size x window_size windows."""
+    bias, optionally within window_size x window_size windows.  K4 takes
+    the tables in the compute dtype: `cast_dense_weights` stores them so,
+    and the forward's cast is then a no-op."""
+
+    cast_with_dense = True
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  grid: tuple[int, int], dtype=torch.float32):
@@ -63,6 +67,7 @@ class WindowAttention(nn.Module):
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * h - 1, hd))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * w - 1, hd))
         self.dim, self.num_heads, self.window_size = dim, num_heads, window_size
+        self.dtype = dtype
 
     def forward(self, x):
         """x (B, gh, gw, C) -> (B, gh, gw, C)."""

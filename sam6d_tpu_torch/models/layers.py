@@ -88,10 +88,12 @@ class BatchNorm(nn.Module):
 
 
 def cast_dense_weights(module: nn.Module) -> nn.Module:
-    """Store every Dense layer's weights in its compute dtype, so the
-    forward does not cast them at each call (same rounding either way)."""
+    """Store every Dense layer's weights, and the parameters of every
+    module that sets `cast_with_dense` (SAM's rel-pos tables), in its
+    compute dtype, so the forward does not cast them at each call (same
+    rounding either way)."""
     for m in module.modules():
-        if isinstance(m, Dense):
+        if isinstance(m, Dense) or getattr(m, "cast_with_dense", False):
             m.to(m.dtype)
     return module
 

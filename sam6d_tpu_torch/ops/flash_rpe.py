@@ -42,7 +42,7 @@ KERNEL_RPE = Kernel(
     "flash_rpe_attention", "flash_rpe.cu",
     replaces="sam6d_tpu/ops/pallas/flash_rpe.py:92",
     signatures={"flash_attn_fwd": [_V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I,
-                                   _I, _I, _V]},
+                                   _I, _V]},
 )
 # K5 shares K4's source and library; it keeps its own launch count.
 KERNEL_PLAIN = Kernel(
@@ -119,22 +119,14 @@ def _check_qkv(q, k, v):
         raise ValueError("flash attention: q, k, v must be 16-byte aligned")
 
 
-# bf16 instances of the kernel (`impl` of `launch`): the kernel's own
-# choice (the wrappers'), mma.sync with one or two 16-row query tiles a
-# warp, and the wgmma instance (d in {64, 80}) kept as the measured
-# alternative.
-IMPLS = {"auto": 0, "mma1": 1, "mma2": 2, "wgmma": 3}
-
-
-def launch(kernel, q, k, v, rel_pos_h, rel_pos_w, hw, out, impl="auto"):
+def launch(kernel, q, k, v, rel_pos_h, rel_pos_w, hw, out):
     """One launch of the kernel on inputs the wrapper has checked, into
     `out` (q's shape and dtype); rel_pos_h / rel_pos_w None for K5."""
     BH, N, d = q.shape
     kernel.launches += 1
     kernel.call("flash_attn_fwd", ptr(q), ptr(k), ptr(v), ptr(rel_pos_h),
                 ptr(rel_pos_w), ptr(out), BH, N, d, hw[0], hw[1],
-                int(q.dtype == torch.bfloat16), IMPLS[impl],
-                current_stream(q.device))
+                int(q.dtype == torch.bfloat16), current_stream(q.device))
     return out
 
 

@@ -46,6 +46,7 @@ from sam6d_tpu_torch.models.ism.dinov2 import DescriptorModel as TDesc
 from sam6d_tpu_torch.models.ism.sam.amg import SamAutomaticMaskGenerator as TAMG
 from sam6d_tpu_torch.models.ism.sam.encoder import ImageEncoderViT as TEncoder
 from sam6d_tpu_torch.models.ism.sam.model import SAM as TSAM
+from sam6d_tpu_torch.models.layers import cast_dense_weights
 from sam6d_tpu_torch.params import (
     flax_to_state_dict,
     init_random_,
@@ -177,6 +178,29 @@ def test_image_encoder_matches(rng, img, patch, window):
         got = tenc(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (2, img // patch, img // patch, 256)
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_cast_dense_weights_stores_the_rel_pos_tables_in_bf16(rng):
+    # K4 takes the tables in the compute dtype; stored so once, the
+    # encoder's forward casts nothing and computes the same bits.
+    kw = dict(img_size=48, patch_size=8, embed_dim=32, depth=2, num_heads=2,
+              window_size=4, global_attn_indexes=(1,), dtype=torch.bfloat16)
+    x = torch.from_numpy(rng.randn(1, 48, 48, 3).astype(np.float32))
+    enc = init_random_(TEncoder(**kw), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if "rel_pos" in name:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        want = enc(x)
+        cast_dense_weights(enc)
+        got = enc(x)
+    for b in range(2):
+        attn = getattr(enc, f"blocks_{b}").attn
+        assert attn.rel_pos_h.dtype == attn.rel_pos_w.dtype == torch.bfloat16
+        assert attn.qkv.weight.dtype == torch.bfloat16
+    assert enc.pos_embed.dtype == torch.float32  # cast at use, not stored
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 def test_prompt_encoder_points_match(tiny, rng):
