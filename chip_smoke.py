@@ -13,7 +13,9 @@ process per source, all at once), then:
    plain version in turns, medians) and, where one PyTorch call computes
    the same function, that call's time as a yardstick (K4/K5 also at
    ragged shapes, through the wrapper and as one bare launch, that
-   launch also timed alone in bursts); plus the
+   launch also timed alone in bursts; K3 and K6 also timed alone; K2 at
+   the training shape also with the winners that K3 reads, both kernels
+   fed the same winners); plus the
    tiny-config PEM template bank, a tiny-config ISM frame (float32) and
    bfloat16 SAM-encoder and DINOv2 blocks at the full model's head dims
    on the card against the same computed on the CPU;
@@ -75,6 +77,17 @@ def require(ok, what: str):
 def bound(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_S
     t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def bound_tc(nbytes: float, tc_flops: float, f32_flops: float = 0.0):
+    """bound() for a kernel whose products run on the tensor cores (bf16
+    operands, float32 sums: the bf16 peak) beside float32 work on the
+    CUDA cores: the largest of the three times."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(tc_flops / PEAK_FLOPS["bfloat16"],
+                f32_flops / PEAK_FLOPS["float32"])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -289,19 +302,43 @@ def check_geo_embed(dev):
             require(bool(((got - want).abs()
                           <= atol + rtol * want.abs()).all()),
                     f"geo_embed B={B} {dtype}: max abs err {err}")
-            t = time_in_turns({
-                "kernel": lambda: geo_embed.geo_embed_maxk_cuda(*args),
-                "plain": lambda: geo_embed.geo_embed_maxk_plain(*args),
-            }, reps=10)
+            fns = {"kernel": lambda: geo_embed.geo_embed_maxk_cuda(*args),
+                   "plain": lambda: geo_embed.geo_embed_maxk_plain(*args)}
+            extra = {}
+            if B == 56:
+                # The training call: K2 also writes the winners of the
+                # max over k for K3 (one byte a pair and channel); the
+                # embedding stays the serving call's, bit for bit.
+                out_w, win = geo_embed.geo_embed_maxk_cuda(*args,
+                                                           winners=True)
+                _, win_plain = geo_embed.geo_embed_maxk_plain(*args,
+                                                              winners=True)
+                serving = geo_embed.geo_embed_maxk_cuda(*args)
+                torch.cuda.synchronize()
+                require(torch.equal(out_w, serving),
+                        "geo_embed: the winners call moved the embedding")
+                differ = float((win != win_plain).float().mean())
+                require(differ <= 1e-4,
+                        f"geo_embed winners: {differ} of the entries differ")
+                fns["kernel_winners"] = lambda: geo_embed.geo_embed_maxk_cuda(
+                    *args, winners=True)
+                extra = dict(winners_differ=differ,
+                             winners_bytes=win.numel())
+                del out_w, win, win_plain, serving
+            t = time_in_turns(fns, reps=10)
             es = torch.finfo(dtype).bits // 8
             pairs = B * N * N
             nbytes = pairs * (4 + 12 + d * es) + 68 * d * es + d * 4
             flops = pairs * (2 * (40 + 3 * 28) * d + 3 * (40 + 3 * 28))
             b_ms, b_by = bound(nbytes, flops, str(dtype).split(".")[-1])
+            if "kernel_winners" in t:
+                extra.update(ms_winners=t["kernel_winners"],
+                             bound_ms_winners=bound(nbytes + pairs * d, flops,
+                                                    "bfloat16")[0])
             rows.append(dict(shape=f"B={B},N={N},d={d},{dtype}",
                              max_abs_err=err, ms=t["kernel"],
                              plain_ms=t["plain"], bound_ms=b_ms,
-                             bound_by=b_by, dtype=str(dtype)))
+                             bound_by=b_by, dtype=str(dtype), **extra))
             log(f"geo_embed {rows[-1]}")
     return rows
 
@@ -571,8 +608,10 @@ def check_decode_tail(dev):
     """K6 at P = 64 and at the AMG's full shape, keys (1024, 4096, 256)
     bf16.  The plain version materializes every stage (several GB in one
     call at P = 1024), so at P = 1024 it runs as 16 calls of 64 prompts,
-    each prompt's statistics being its own.  No PyTorch call computes
-    these statistics."""
+    each prompt's statistics being its own.  Times: the wrapper (`ms`,
+    with its checks and the hi / lo split of W1 and W2), the kernel alone
+    (`kernel_ms`: a burst of bare launches on prepared operands) and the
+    plain version.  No PyTorch call computes these statistics."""
     import torch
 
     from sam6d_tpu_torch.ops import decode_tail as dt
@@ -611,21 +650,38 @@ def check_decode_tail(dev):
             e = float(diff[:, list(rows_)].max())
             require(e <= atol, f"decode_tail P={P} rows {rows_}: {e} > {atol}")
         err = float(diff.max())
+        bufs = dt.prepare(inp["keys"], inp["w1"], inp["w2"])
+        vec = [inp[k] for k in ("keys", "hyper", "b1", "ln_scale", "ln_bias",
+                                "b2")]
+        bare = lambda: dt.launch(*vec, *bufs, 0.0, 1.0, 1e-6)
+        bare()
+        torch.cuda.synchronize()
+        require(torch.equal(bufs[-1], got),
+                f"decode_tail P={P}: the bare launch differs from the wrapper")
         del got, want, diff
         t = time_in_turns({"kernel": kern, "plain": plain}, reps)
-        # Per token: stage 1 (256 x 256), stage 2 (4 x 64 x 128) and the
-        # contraction (4 x 12 x 32) multiply-adds, plus ~10 operations
-        # for each LayerNorm / GELU value (256 + 512); float32.
+        tb = time_in_turns({"kernel": bare}, reps, burst=5)
+        # Per token: stage 1 (256 x 256) as two bf16 products (the keys
+        # are bf16, W1 split into hi and lo), stage 2 (4 x 64 x 128) as
+        # three, on the tensor cores; on the CUDA cores the contraction
+        # (4 x 12 x 32 multiply-adds) and ~10 operations for each
+        # LayerNorm / GELU value (256 + 512).  The float32 bound of
+        # earlier runs counts every product once at the CUDA cores' peak.
         tokens = P * 4096
+        tc_flops = tokens * 2 * (2 * 256 * 256 + 3 * 4 * 64 * 128)
+        f32_flops = tokens * (2 * 4 * 12 * 32 + 10 * (256 + 512))
         flops = tokens * (2 * (256 * 256 + 4 * 64 * 128 + 4 * 12 * 32)
                           + 10 * (256 + 512))
         nbytes = tokens * 256 * 2 + P * (96 + 96) * 4 + (256 * 256 + 64
                                                          * 128 + 896) * 4
-        b_ms, b_by = bound(nbytes, flops, "float32")
+        b_ms, b_by = bound_tc(nbytes, tc_flops, f32_flops)
+        f32_ms, _ = bound(nbytes, flops, "float32")
         rows.append(dict(shape=f"P={P}, keys ({P},4096,256) bf16",
                          max_abs_err=err, ms=t["kernel"],
+                         kernel_ms=tb["kernel"],
                          plain_ms=t["plain"], plain_calls=P // 64,
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by,
+                         bound_ms_float32_cuda_cores=f32_ms))
         log(f"decode_tail {rows[-1]}")
     return rows
 
@@ -763,12 +819,14 @@ def check_tiny_bf16(dev):
 
 
 def check_geo_embed_bwd(dev):
-    """K3 against its plain version: at the training shape (56, 197, 197),
-    d = 256, bfloat16, and at a tiny float32 shape with constructed exact
-    ties across k (all three k equal: every channel a three-way tie).
-    Also: two launches on the same inputs give the same bits (the
-    cross-block sum runs in a fixed order).  No PyTorch call computes
-    these gradients."""
+    """K3 against its plain version, both fed the winners that K2 writes
+    for the same inputs: at the training shape (56, 197, 197), d = 256,
+    bfloat16, and at a tiny float32 shape with constructed exact ties
+    across k (all three k equal: every channel a three-way tie).  Also:
+    two launches on the same inputs give the same bits (the cross-block
+    sum runs in a fixed order).  Times: the wrapper (`ms`), the kernel
+    alone (`kernel_ms`: a burst of bare launches on prepared outputs), the
+    plain version.  No PyTorch call computes these gradients."""
     import torch
 
     from sam6d_tpu_torch.config import GeoEmbeddingConfig
@@ -779,11 +837,10 @@ def check_geo_embed_bwd(dev):
     from sam6d_tpu_torch.ops import geo_embed
     from sam6d_tpu_torch.params import init_random_
 
-    # Relative (Frobenius) per output.  bf16 at the training shape: float32
-    # sums over 2.2M pairs taken in another order, and at near-ties of the
-    # max over k the kernel's fmaf chain (the forward kernel's) and the
-    # plain version's matmul may pick different winners: 1e-3.  float32
-    # with all k tied: no near-ties, the shares exact on both sides: 1e-5.
+    # Relative (Frobenius) per output.  bf16 at the training shape: the
+    # same bf16 operands, float32 sums over 2.2M pairs taken in another
+    # order: 1e-3.  float32 with all k tied: the kernel's split products
+    # (each operand hi + lo to 2^-17) and the order of the sums: 1e-5.
     rows = []
     cases = ((torch.bfloat16, 56, 197, 256, False, 1e-3, 5),
              (torch.float32, 2, 33, 32, True, 1e-5, 10))
@@ -793,6 +850,7 @@ def check_geo_embed_bwd(dev):
         init_random_(mod, torch.Generator().manual_seed(0))
         mod.to(dev)
         with torch.no_grad():
+            Md = mod._fold(40, 20.0, mod.proj_d).contiguous()
             Ma = mod._fold(28, 12.0, mod.proj_a).contiguous()
         g = torch.Generator(device=dev).manual_seed(B)
         pts = torch.rand(B, N, 3, generator=g, device=dev) * 2 - 1
@@ -803,7 +861,10 @@ def check_geo_embed_bwd(dev):
         if ties:
             a_idx = a_idx[..., :1].expand_as(a_idx).contiguous()
         cot = torch.randn(B, N, N, d, generator=g, device=dev).to(dtype)
-        args = (d_idx, a_idx, Ma, cot, 20.0, 12.0)
+        _, win = geo_embed.geo_embed_maxk_cuda(
+            d_idx, a_idx, Md, Ma, torch.zeros(d, device=dev), 20.0, 12.0,
+            dtype, winners=True)
+        args = (d_idx, a_idx, win, cot, 20.0, 12.0)
         got = geo_embed.geo_embed_maxk_bwd_cuda(*args)
         again = geo_embed.geo_embed_maxk_bwd_cuda(*args)
         want = geo_embed.geo_embed_maxk_bwd_plain(*args, 40)
@@ -816,26 +877,40 @@ def check_geo_embed_bwd(dev):
         require(max(errs.values()) <= tol,
                 f"geo_embed_bwd {dtype} ({B},{N},{N}): relative errors "
                 f"{errs} > {tol}")
+        bufs = geo_embed.prepare_bwd(cot)
+        bare = lambda: geo_embed.launch_bwd(*args, *bufs)
+        bare()
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(bufs[1:], got)),
+                f"geo_embed_bwd {dtype}: the bare launch differs")
         del got, again, want
         t = time_in_turns({
             "kernel": lambda: geo_embed.geo_embed_maxk_bwd_cuda(*args),
             "plain": lambda: geo_embed.geo_embed_maxk_bwd_plain(*args, 40),
         }, reps)
-        # Per pair and channel 40 + 84 + 84 multiply-adds (dMd, the
-        # recomputed e_k, dMa) on operands of the compute dtype; bytes: g
-        # and the index fields read once, Ma read, three outputs written.
+        tb = time_in_turns({"kernel": bare}, reps, burst=10)
+        # Per pair and channel 40 + 84 multiply-adds (dMd, dMa), on the
+        # tensor cores (bf16 operands; float32 operands as four split
+        # products); bytes: g, the winners and the index fields read once,
+        # three outputs written.  The float32 bound of earlier runs
+        # counted the e_k rebuild too (40 + 84 + 84) at the CUDA cores'
+        # peak.
         es = torch.finfo(dtype).bits // 8
         pairs = B * N * N
-        nbytes = pairs * (d * es + 16) + 28 * d * es + 69 * d * 4
-        flops = pairs * d * 2 * (40 + 84 + 84)
-        b_ms, b_by = bound(nbytes, flops, str(dtype).split(".")[-1])
+        nbytes = pairs * (d * es + d + 16) + 69 * d * 4
+        splits = 4 if dtype == torch.float32 else 1
+        b_ms, b_by = bound_tc(nbytes, pairs * d * 2 * (40 + 84) * splits)
+        f32_ms, _ = bound(pairs * (d * es + 16) + 28 * d * es + 69 * d * 4,
+                          pairs * d * 2 * (40 + 84 + 84), "float32")
         rows.append(dict(shape=f"({B},{N},{N}),d={d},{dtype}"
                                + (", exact ties" if ties else ""),
                          max_abs_err=err, rel_errs=errs, tolerance=tol,
                          deterministic=True, ms=t["kernel"],
-                         plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by))
+                         kernel_ms=tb["kernel"], plain_ms=t["plain"],
+                         bound_ms=b_ms, bound_by=b_by,
+                         bound_ms_float32_cuda_cores=f32_ms))
         log(f"geo_embed_bwd {rows[-1]}")
-        del cot, args
+        del cot, args, win, bufs
     return rows
 
 
@@ -1258,9 +1333,16 @@ def phase_train(dev):
             f"train: no update applied ({state.optimizer.count} updates, "
             f"{changed} parameters changed)")
     ms = statistics.median(m["ms"] for m in steps[warm:])
+    # K3 reads the winners that K2 saves in the forward: one byte a pair
+    # and channel of the 2 x batch clouds of 197 points, d = 256.
+    from sam6d_tpu_torch.config import default_pem_config
+
+    n_c = default_pem_config().coarse_npoint + 1  # the bg token and 196
+    winners_bytes = 2 * solver.cfg.batch_size * n_c * n_c * 256
     log(f"train slice: {warm} warm-up + {timed} timed steps, median "
         f"{ms:.1f} ms a step ({1e3 * solver.cfg.batch_size / ms:.1f} "
-        f"samples/s), peak memory {peak / 2**30:.2f} GiB, "
+        f"samples/s), peak memory {peak / 2**30:.2f} GiB (the K3 winners: "
+        f"{winners_bytes / 2**30:.3f} GiB), "
         f"{state.optimizer.count} updates applied, {changed} parameter "
         f"tensors changed, launches {launches}, wall {wall_s:.1f} s")
     ds = solver.dataloader.dataset
@@ -1269,7 +1351,8 @@ def phase_train(dev):
         lambda: ts.train_step(state, batch, solver.generator), "train step")
     return dict(steps=steps, warmup=warm, step_ms=ms,
                 samples_per_s=1e3 * solver.cfg.batch_size / ms,
-                peak_bytes=peak, updates_applied=state.optimizer.count,
+                peak_bytes=peak, winners_bytes=winners_bytes,
+                updates_applied=state.optimizer.count,
                 params_changed=changed, launches=launches, wall_s=wall_s,
                 profile=profile)
 

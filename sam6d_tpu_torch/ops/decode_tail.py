@@ -18,7 +18,9 @@ recomputed with the exact-erf tail afterwards (`models/ism/sam/amg.py`).
 `decode_tail_stats` launches `csrc/decode_tail.cu` for tensors on the
 card and computes `decode_tail_stats_plain` (the JAX package's
 `decode_tail_stats_reference`, returned in the kernel's layout) for
-tensors on the CPU; `fold_stats` serves both.
+tensors on the CPU; `fold_stats` serves both.  The kernel multiplies on
+the tensor cores with every float32 operand split into two bfloat16
+parts (`split_bf16`), which keeps the products at float32 accuracy.
 """
 
 from __future__ import annotations
@@ -40,7 +42,23 @@ KERNEL = Kernel(
 )
 
 BIG = 1e9
-ROW_TILE = 64  # tokens per block of the kernel
+# Tokens of one work item of the kernel, by key dtype (its scratch tile).
+ROW_TILE = {torch.bfloat16: 256, torch.float32: 128}
+
+
+def split_bf16(x: torch.Tensor):
+    """float32 x -> bfloat16 (hi, lo), hi = rn(x), lo = rn(x - hi):
+    hi + lo is x to within 2^-17 relative (outside the subnormals), so
+    products of split operands summed in float32 keep float32 accuracy.
+    The kernel splits its float32 keys and stage-2 activations alike."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _split_t(w: torch.Tensor) -> torch.Tensor:
+    """(in, out) float32 -> (2, out, in) bfloat16: hi and lo of w^T, the
+    [n][k] layout the kernel's ldmatrix B fragments read."""
+    return torch.stack(split_bf16(w.t().contiguous()))
 
 
 def _gelu_sigmoid(x):
@@ -103,7 +121,7 @@ def decode_tail_stats_cuda(keys, hyper, w1, b1, ln_scale, ln_bias, w2, b2,
         raise ValueError(f"decode_tail_stats: unsupported dtype {keys.dtype}")
     check_cuda(keys, "keys", keys.dtype, ndim=3)
     P, N, C = keys.shape
-    side = _side(N)
+    _side(N)  # raises unless the tokens form a square grid
     f32 = torch.float32
     shapes = {"hyper": (P, 3, 32), "w1": (256, 256), "b1": (256,),
               "ln_scale": (256,), "ln_bias": (256,), "w2": (64, 128),
@@ -117,16 +135,35 @@ def decode_tail_stats_cuda(keys, hyper, w1, b1, ln_scale, ln_bias, w2, b2,
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"decode_tail_stats: {name} {tuple(t.shape)} "
                              f"!= {shapes[name]}")
-    n_tiles = -(-N // ROW_TILE)
-    partial = torch.empty((P, n_tiles, 8, 12), dtype=f32, device=keys.device)
-    stats = torch.empty((P, 8, 12), dtype=f32, device=keys.device)
+    if keys.data_ptr() % 16:
+        raise ValueError("decode_tail_stats: keys must be 16-byte aligned")
+    bufs = prepare(keys, w1, w2)
+    launch(keys, hyper, b1, ln_scale, ln_bias, b2, *bufs,
+           mask_threshold, stability_offset, ln_eps)
+    return bufs[-1]
+
+
+def prepare(keys, w1, w2):
+    """The kernel's operands and outputs besides the caller's tensors:
+    (w1s, w2s, partial, stats), the weights split and transposed."""
+    P, N, _ = keys.shape
+    n_tiles = -(-N // ROW_TILE[keys.dtype])
+    dev, f32 = keys.device, torch.float32
+    return (_split_t(w1), _split_t(w2),
+            torch.empty((P, n_tiles, 8, 12), dtype=f32, device=dev),
+            torch.empty((P, 8, 12), dtype=f32, device=dev))
+
+
+def launch(keys, hyper, b1, ln_scale, ln_bias, b2, w1s, w2s, partial, stats,
+           mask_threshold, stability_offset, ln_eps) -> None:
+    """One launch on checked, prepared operands (`prepare`)."""
+    P, N, _ = keys.shape
     KERNEL.launches += 1
-    KERNEL.call("decode_tail_stats", ptr(keys), ptr(hyper), ptr(w1), ptr(b1),
-                ptr(ln_scale), ptr(ln_bias), ptr(w2), ptr(b2), ptr(partial),
-                ptr(stats), P, N, side, float(mask_threshold),
+    KERNEL.call("decode_tail_stats", ptr(keys), ptr(hyper), ptr(w1s), ptr(b1),
+                ptr(ln_scale), ptr(ln_bias), ptr(w2s), ptr(b2), ptr(partial),
+                ptr(stats), P, N, _side(N), float(mask_threshold),
                 float(stability_offset), float(ln_eps),
                 int(keys.dtype == torch.bfloat16), current_stream(keys.device))
-    return stats
 
 
 def decode_tail_stats(keys, hyper, w1, b1, ln_scale, ln_bias, w2, b2, *,

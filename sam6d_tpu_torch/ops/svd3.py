@@ -14,14 +14,34 @@ _EPS = 1e-12
 _JACOBI_SWEEPS = 6
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root, as XLA's and CUDA's.
+
+    PyTorch's CPU `sqrt` may be one ulp off (its vectorized kernels do
+    not round to nearest), and at a rank-deficient H those ulps move the
+    null singular values and vectors away from the reference's.  On the
+    CPU the result is moved to the neighbour whose half-ulp midpoint
+    brackets x: each midpoint has at most 26 significant bits, so its
+    square is exact in float64.
+    """
+    y = torch.sqrt(x)
+    if x.is_cuda:
+        return y
+    up = torch.nextafter(y, torch.full_like(y, float("inf")))
+    dn = torch.nextafter(y, torch.zeros_like(y))
+    xd, yd = x.double(), y.double()
+    hi, lo = (yd + up.double()) * 0.5, (yd + dn.double()) * 0.5
+    return torch.where(hi * hi < xd, up, torch.where(lo * lo > xd, dn, y))
+
+
 def _rot_coeffs(app, aqq, apq):
     """Jacobi rotation (c, s) zeroing the (p, q) entry."""
     safe = torch.abs(apq) > _EPS
     tau = (aqq - app) / (2.0 * torch.where(safe, apq, torch.ones_like(apq)))
     sign = torch.where(tau >= 0, torch.ones_like(tau), -torch.ones_like(tau))
-    t = sign / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+    t = sign / (torch.abs(tau) + _sqrt(1.0 + tau * tau))
     t = torch.where(safe, t, torch.zeros_like(t))
-    c = 1.0 / torch.sqrt(1.0 + t * t)
+    c = 1.0 / _sqrt(1.0 + t * t)
     return c, t * c
 
 
@@ -94,7 +114,7 @@ def _pack(cols) -> torch.Tensor:
 
 
 def _norm3(x, y, z):
-    return torch.sqrt(torch.clamp_min(x * x + y * y + z * z, _EPS))
+    return _sqrt(torch.clamp_min(x * x + y * y + z * z, _EPS))
 
 
 def svd3x3(H: torch.Tensor):
@@ -125,9 +145,9 @@ def svd3x3_soa(h):
     w, Vc = _eigh3x3_soa(a00, a01, a02, a11, a12, a22)
     w, (v1, v2, v3) = _sort3_desc(w, Vc)
 
-    s1 = torch.sqrt(torch.clamp_min(w[0], 0.0))
-    s2 = torch.sqrt(torch.clamp_min(w[1], 0.0))
-    s3 = torch.sqrt(torch.clamp_min(w[2], 0.0))
+    s1 = _sqrt(torch.clamp_min(w[0], 0.0))
+    s2 = _sqrt(torch.clamp_min(w[1], 0.0))
+    s3 = _sqrt(torch.clamp_min(w[2], 0.0))
     scale = torch.clamp_min(s1, _EPS)
 
     def matvec(v):

@@ -76,3 +76,24 @@ def test_wrapper_takes_the_plain_version_only_on_the_cpu():
     assert td.KERNEL.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         td.decode_tail_stats_cuda(**inp)
+
+
+def test_bf16_split_reproduces_float32_operands():
+    # The kernel's products take each float32 operand as bf16 hi + lo:
+    # hi + lo must be the operand to within 2^-16 relative (2^-17 by
+    # construction: each part rounds to 8 significant bits).
+    rng = np.random.RandomState(3)
+    x = (rng.randn(4096) * 10.0 ** rng.randint(-20, 20, 4096)).astype(
+        np.float32)
+    hi, lo = td.split_bf16(torch.from_numpy(x))
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    back = hi.double() + lo.double()
+    rel = (back - torch.from_numpy(x).double()).abs() / torch.from_numpy(
+        np.abs(x)).double()
+    assert float(rel.max()) <= 2.0 ** -16
+    # The kernel's weight layout: (2, out, in), hi then lo of w^T.
+    w = torch.from_numpy(rng.randn(64, 128).astype(np.float32))
+    ws = td._split_t(w)
+    assert ws.shape == (2, 128, 64) and ws.dtype == torch.bfloat16
+    torch.testing.assert_close(ws[0].float() + ws[1].float(), w.T,
+                               atol=0, rtol=2.0 ** -16)

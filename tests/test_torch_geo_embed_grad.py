@@ -43,6 +43,7 @@ from sam6d_tpu_torch.config import GeoEmbeddingConfig as TCfg
 from sam6d_tpu_torch.models.pem.geo_embedding import (
     GeometricStructureEmbedding as TGeo,
 )
+from sam6d_tpu_torch.ops import geo_embed as tge
 from sam6d_tpu_torch.ops.geo_embed import geo_embed_maxk
 from sam6d_tpu_torch.params import flax_to_state_dict
 
@@ -168,3 +169,88 @@ def test_module_param_grads_through_the_fused_path():
         scale = max(float(np.abs(w).max()), 1.0)
         np.testing.assert_allclose(p.grad.numpy(), w, rtol=2e-3,
                                    atol=2e-3 * scale, err_msg=name)
+
+
+def _jax_winners(a_idx, Ma, jdt):
+    """The argmax set that the JAX forward implies: bit k where the
+    branch embedding e_k (bases rounded to the compute dtype, float32
+    products, as the Pallas forward) reaches the max over k."""
+    ta = jnp.stack(_cheb_basis(_norm_idx(jnp.asarray(a_idx), HI_A), 28), -1)
+    e = ta.astype(jdt).astype(jnp.float32) @ jnp.asarray(Ma, jdt).astype(
+        jnp.float32)
+    win = np.asarray(e == e.max(axis=3, keepdims=True))
+    return (win * (1 << np.arange(3))[:, None]).sum(axis=3).astype(np.uint8)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_winners_are_the_jax_argmax_set(ties, dtype):
+    d_idx, a_idx, Md, Ma, bias, _ = _inputs(ties)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    out, win = tge.geo_embed_maxk_plain(
+        torch.from_numpy(d_idx), torch.from_numpy(a_idx),
+        torch.from_numpy(Md).to(dtype), torch.from_numpy(Ma).to(dtype),
+        torch.from_numpy(bias), HI_D, HI_A, dtype, winners=True)
+    assert win.dtype == torch.uint8 and win.shape == out.shape
+    want = _jax_winners(a_idx, Ma, jdt)
+    np.testing.assert_array_equal(win.numpy(), want)
+    # The serving call (no winners) computes the same embedding.
+    again = tge.geo_embed_maxk_plain(
+        torch.from_numpy(d_idx), torch.from_numpy(a_idx),
+        torch.from_numpy(Md).to(dtype), torch.from_numpy(Ma).to(dtype),
+        torch.from_numpy(bias), HI_D, HI_A, dtype)
+    assert torch.equal(again, out)
+    if ties:  # both two- and three-way ties occur
+        counts = np.unpackbits(want[..., None], axis=-1).sum(-1)
+        assert (counts == 2).any() and (counts == 3).any()
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype,rtol", [(torch.bfloat16, 1e-3),
+                                        (torch.float32, 5e-3)])
+def test_plain_backward_fed_the_winners_matches_the_jax_vjp(ties, dtype,
+                                                            rtol):
+    # K3's plain version called directly with the forward's winners, at
+    # the tolerances of test_grads_match_pallas_interpret (same reasons).
+    d_idx, a_idx, Md, Ma, bias, cot = _inputs(ties)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    dt, at = torch.from_numpy(d_idx), torch.from_numpy(a_idx)
+    _, win = tge.geo_embed_maxk_plain(
+        dt, at, torch.from_numpy(Md).to(dtype), torch.from_numpy(Ma).to(dtype),
+        torch.from_numpy(bias), HI_D, HI_A, dtype, winners=True)
+    g = torch.from_numpy(cot).to(dtype)
+    got = tge.geo_embed_maxk_bwd_plain(dt, at, win, g, HI_D, HI_A)
+    # dMd and dMa come back in the parameters' dtype, as the Function
+    # returns them.
+    got = [got[0].to(dtype).float().numpy(), got[1].to(dtype).float().numpy(),
+           got[2].numpy()]
+    _close(got, _pallas_grads(d_idx, a_idx, Md, Ma, bias, cot, jdt), rtol)
+
+
+def test_plain_backward_three_way_ties_split_evenly():
+    # Every channel a three-way tie: each k gets g / 3, and the three
+    # shares add up to the one-k gradient (float32, 1e-5 against XLA).
+    d_idx, a_idx, Md, Ma, bias, cot = _inputs(False, seed=2)
+    a_idx[...] = a_idx[..., :1]
+    dt, at = torch.from_numpy(d_idx), torch.from_numpy(a_idx)
+    _, win = tge.geo_embed_maxk_plain(
+        dt, at, torch.from_numpy(Md), torch.from_numpy(Ma),
+        torch.from_numpy(bias), HI_D, HI_A, torch.float32, winners=True)
+    assert bool((win == 7).all())
+    got = tge.geo_embed_maxk_bwd_plain(dt, at, win, torch.from_numpy(cot),
+                                       HI_D, HI_A)
+    _close([x.numpy() for x in got],
+           _xla_grads(d_idx, a_idx, Md, Ma, bias, cot), 1e-5)
+
+
+def test_serving_forward_saves_no_winners():
+    # Without a gradient to compute the Function records nothing: the
+    # serving path neither writes nor keeps a winners tensor.
+    d_idx, a_idx, Md, Ma, bias, _ = _inputs(False)
+    args = [torch.from_numpy(x) for x in (d_idx, a_idx, Md, Ma, bias)]
+    out = geo_embed_maxk(*args, HI_D, HI_A, torch.float32)
+    assert out.grad_fn is None
+    args[3].requires_grad_()
+    out = geo_embed_maxk(*args, HI_D, HI_A, torch.float32)
+    saved = out.grad_fn.saved_tensors
+    assert saved[2].dtype == torch.uint8 and saved[2].shape == out.shape

@@ -87,6 +87,31 @@ def test_geo_embed_kernel_matches_plain(dev, dtype, atol, rtol, B, N, d):
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ties", ["none", "all"])
+def test_geo_embed_winners_match_plain(dev, dtype, ties):
+    # The training forward writes the winners and leaves the embedding as
+    # the serving call computes it, bit for bit.  Its winners are the
+    # plain version's, except where two e_k lie within float32 rounding
+    # of each other (the kernel's fmaf chain against a matmul): at most
+    # 1e-4 of the (pair, channel) entries; with all k equal, every entry
+    # is 0b111 on both sides.
+    d_idx, a_idx, Md, Ma, bias = _geo_inputs(dev, 2, 33, 32, dtype)
+    if ties == "all":
+        a_idx = a_idx[..., :1].expand_as(a_idx).contiguous()
+    args = (d_idx, a_idx, Md, Ma, bias, 20.0, 12.0, dtype)
+    serving = ge.geo_embed_maxk_cuda(*args)
+    out, win = ge.geo_embed_maxk_cuda(*args, winners=True)
+    _, want = ge.geo_embed_maxk_plain(*args, winners=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, serving)
+    assert win.dtype == torch.uint8 and win.shape == out.shape
+    if ties == "all":
+        assert bool((win == 7).all()) and bool((want == 7).all())
+    else:
+        assert float((win != want).float().mean()) <= 1e-4
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         fps_mod.fps_cuda(torch.zeros(1, 64, 3, device=dev, dtype=torch.float64), 8)
@@ -262,11 +287,16 @@ def _tail_inputs(dev, P, N, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("P,N", [(3, 256), (2, 100), (4, 4096)])
+@pytest.mark.parametrize("P,N", [(3, 256), (2, 100), (4, 4096), (5, 64),
+                                 (7, 144)])
 def test_decode_tail_kernel_matches_plain(dev, dtype, P, N):
     # Counts atol 8 and boxes atol 4 px, as the JAX package holds its
-    # kernel to its reference: float32 summation order flips the pixels
-    # whose logit lies within rounding of a threshold.
+    # kernel to its reference: float32 summation order, and the kernel's
+    # bf16 hi / lo split products (float32-level accuracy), flip the
+    # pixels whose logit lies within rounding of a threshold.  N = 64,
+    # 100 and 144 leave a work item's tile (128 tokens for bf16 keys, 64
+    # for float32) partly empty; P = 5 and 7 spread unevenly over the
+    # persistent grid.
     inp = _tail_inputs(dev, P, N, dtype)
     kw = dict(mask_threshold=0.0, stability_offset=0.3)
     got = dt.decode_tail_stats_cuda(**inp, **kw)
@@ -298,27 +328,33 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 def _bwd_inputs(dev, B, N, d, dtype, ties="none", seed=0):
-    d_idx, a_idx, _, Ma, _ = _geo_inputs(dev, B, N, d, dtype, seed)
+    """Index fields, the winners that K2 writes for them, a cotangent."""
+    d_idx, a_idx, Md, Ma, bias = _geo_inputs(dev, B, N, d, dtype, seed)
     if ties == "some":  # k=1 repeats k=0; k=2 too on every other row
         a_idx[..., 1] = a_idx[..., 0]
         a_idx[:, ::2, :, 2] = a_idx[:, ::2, :, 0]
     elif ties == "all":
         a_idx = a_idx[..., :1].expand_as(a_idx).contiguous()
+    a_idx = a_idx.contiguous()
+    _, win = ge.geo_embed_maxk_cuda(d_idx, a_idx, Md, Ma, bias, 20.0, 12.0,
+                                    dtype, winners=True)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     cot = torch.randn(B, N, N, d, generator=g, device=dev).to(dtype)
-    return d_idx, a_idx.contiguous(), Ma, cot
+    return d_idx, a_idx, win, cot
 
 
 @pytest.mark.parametrize("ties", ["none", "some", "all"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,d", [(2, 33, 32), (1, 197, 256)])
+@pytest.mark.parametrize("B,N,d", [(2, 33, 32), (1, 197, 256), (3, 7, 64)])
 def test_geo_embed_bwd_kernel_matches_plain(dev, ties, dtype, B, N, d):
-    # The kernel rebuilds each e_k with the forward kernel's fmaf chain,
-    # the plain version with the plain forward's matmul: where two e_k
-    # lie within float32 rounding of each other they may crown different
-    # winners, which moves dMa by a few terms of its millions: 1e-3.
-    # With all three k equal every channel is an exact three-way tie on
-    # both sides, and only the order of the float32 sums differs: 1e-5.
+    # Both sides read the same winners (K2's).  bfloat16: the same
+    # bf16 operands and float32 sums in another order, the outputs
+    # compared in float32: 1e-3.  float32: the kernel's split products
+    # hi.hi + hi.lo + lo.hi + lo.lo are each operand to 2^-17 relative,
+    # so besides the order of the sums it differs from float32 products
+    # by ~1e-6: 1e-5 where every channel is an exact three-way tie (as
+    # before), 1e-3 otherwise.  The pair counts (2178, 38809, 147) are
+    # not multiples of the 64-pair tile.
     rtol = 1e-5 if ties == "all" else 1e-3
     args = (*_bwd_inputs(dev, B, N, d, dtype, ties), 20.0, 12.0)
     got = ge.geo_embed_maxk_bwd_cuda(*args)
@@ -351,15 +387,15 @@ def test_scatter_rows_kernel_matches_plain(dev):
 
 
 def test_training_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    d_idx, a_idx, Ma, cot = _bwd_inputs(dev, 1, 9, 32, torch.float32)
-    with pytest.raises(ValueError):  # g in another dtype than Ma
-        ge.geo_embed_maxk_bwd_cuda(d_idx, a_idx, Ma, cot.bfloat16(), 20.0,
-                                   12.0)
+    d_idx, a_idx, win, cot = _bwd_inputs(dev, 1, 9, 32, torch.float32)
+    with pytest.raises(ValueError):  # winners of another dtype
+        ge.geo_embed_maxk_bwd_cuda(d_idx, a_idx, win.int(), cot, 20.0, 12.0)
     with pytest.raises(ValueError):  # k = 2
-        ge.geo_embed_maxk_bwd_cuda(d_idx, a_idx[..., :2].contiguous(), Ma,
+        ge.geo_embed_maxk_bwd_cuda(d_idx, a_idx[..., :2].contiguous(), win,
                                    cot, 20.0, 12.0)
     with pytest.raises(ValueError):  # d = 48
-        ge.geo_embed_maxk_bwd_cuda(d_idx, a_idx, Ma[:, :16].repeat(1, 3),
+        ge.geo_embed_maxk_bwd_cuda(d_idx, a_idx,
+                                   win[..., :16].repeat(1, 1, 1, 3),
                                    cot[..., :16].repeat(1, 1, 1, 3), 20.0,
                                    12.0)
     idx = torch.zeros(1, 8, dtype=torch.long, device=dev)

@@ -158,6 +158,18 @@ def test_svd3x3_matches_jax_conventions():
     np.testing.assert_allclose(np.swapaxes(Vt, 1, 2) @ Vt, eye, atol=1e-4)
 
 
+def test_svd_sqrt_rounds_to_nearest():
+    # The SVD's square root is the correctly rounded one (float64
+    # reference, then one rounding), whatever the host's library sqrt:
+    # at rank-deficient H one ulp moves the null singular values.
+    rng = np.random.RandomState(11)
+    x = (np.abs(rng.randn(20000)) * 10.0 ** rng.randint(-30, 30, 20000)
+         ).astype(np.float32)
+    x[:4] = [0.0, 1e-45, np.finfo(np.float32).max, np.inf]
+    ref = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(tsvd._sqrt(_t(x)).numpy(), ref)
+
+
 def test_weighted_procrustes_matches_and_is_proper():
     # float32 rounding through the SVD: 1e-4 absolute on R and t; det(R)
     # must be +1 (reflections are corrected by the det-sign fix).
