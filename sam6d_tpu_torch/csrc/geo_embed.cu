@@ -15,17 +15,19 @@
 // d output values.  At d = 256 that is 248 flops per output element, so a
 // float32 output (4 bytes) is bound by float32 operations and a bfloat16
 // output (2 bytes) by the bytes it writes (below the tensor cores' ~295
-// flops per byte).  This first version runs the products on CUDA cores in
-// float32, well short of the tensor-core rate.
+// flops per byte).
 //
-// Design: one block of d threads (one output channel each) per tile of 64
-// pairs.  Each thread holds its Md and Ma columns (68 floats) in registers
-// for the whole tile.  The block first runs the four recurrences of every
-// pair of the tile (1 distance + 3 angles) into shared memory, then each
-// thread walks the pairs, reading each basis vector as a shared-memory
-// broadcast, takes the max over k in registers, and writes its channel of
-// the output row: the (B, N, N, k, d) angle tensor and the bases never touch
-// device memory, and the output is written once, coalesced.
+// Two instances.  bfloat16, the serving and training dtype, runs its
+// products on the tensor cores (geo_embed_fwd_mma_kernel, below the
+// backward's helpers, which it shares).  float32 keeps the CUDA-core
+// design that follows: one block of d threads (one output channel each)
+// per tile of 64 pairs.  Each thread holds its Md and Ma columns (68
+// floats) in registers for the whole tile.  The block first runs the four
+// recurrences of every pair of the tile (1 distance + 3 angles) into
+// shared memory, then each thread walks the pairs, reading each basis
+// vector as a shared-memory broadcast, takes the max over k in registers,
+// and writes its channel of the output row.  In both, the (B, N, N, k, d)
+// angle tensor and the bases never touch device memory.
 //
 // The recurrence and the normalisation use explicitly rounded operations
 // (no FMA contraction) in the order of the plain version, so the bases are
@@ -34,7 +36,8 @@
 // For training the forward also writes the winners: one byte per (pair,
 // channel) whose bit k is set where e_k reaches the max (several bits at
 // an exact tie).  The backward reads them instead of rebuilding e_k.  The
-// serving call passes no winners buffer and computes what it did before.
+// serving call passes no winners buffer; its embedding is the same, bit
+// for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,34 +53,8 @@ constexpr int kK = 3;
 constexpr int kTile = 64;     // pairs per block
 constexpr int kStride = 128;  // floats per pair in shared memory (124 used)
 
-template <typename T>
-__device__ __forceinline__ float to_float(T v);
-template <>
-__device__ __forceinline__ float to_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_float<T>(from_float<T>(v));
-}
-
-template <typename T, int P>
+// The float32 instance's bases: the plain version's rounded recurrence.
+template <int P>
 __device__ __forceinline__ void cheb_basis(float raw, float scale,
                                            float* dst) {
   float x = __fsub_rn(__fmul_rn(raw, scale), 1.0f);
@@ -85,14 +62,14 @@ __device__ __forceinline__ void cheb_basis(float raw, float scale,
   const float x2 = __fmul_rn(2.0f, x);
   float tp = 1.0f;
   float tc = x;
-  dst[0] = round_to<T>(tp);
-  dst[1] = round_to<T>(tc);
+  dst[0] = tp;
+  dst[1] = tc;
 #pragma unroll
   for (int p = 2; p < P; ++p) {
     const float tn = __fsub_rn(__fmul_rn(x2, tc), tp);
     tp = tc;
     tc = tn;
-    dst[p] = round_to<T>(tc);
+    dst[p] = tc;
   }
 }
 
@@ -112,12 +89,12 @@ __device__ __forceinline__ float dot_basis(const float* __restrict__ b,
   return acc;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(256)
     geo_embed_fwd_kernel(const float* __restrict__ d_idx,
                          const float* __restrict__ a_idx,
-                         const T* __restrict__ md_g, const T* __restrict__ ma_g,
-                         const float* __restrict__ bias, T* __restrict__ out,
+                         const float* __restrict__ md_g,
+                         const float* __restrict__ ma_g,
+                         const float* __restrict__ bias, float* __restrict__ out,
                          uint8_t* __restrict__ win, int64_t n_pairs, int d,
                          float scale_d, float scale_a) {
   __shared__ __align__(16) float s_basis[kTile * kStride];
@@ -131,10 +108,10 @@ __global__ void __launch_bounds__(256)
     const int f = task % (1 + kK);
     float* dst = s_basis + pr * kStride;
     if (f == 0) {
-      cheb_basis<T, kPd>(d_idx[p0 + pr], scale_d, dst);
+      cheb_basis<kPd>(d_idx[p0 + pr], scale_d, dst);
     } else {
-      cheb_basis<T, kPa>(a_idx[(p0 + pr) * kK + (f - 1)], scale_a,
-                         dst + kPd + (f - 1) * kPa);
+      cheb_basis<kPa>(a_idx[(p0 + pr) * kK + (f - 1)], scale_a,
+                      dst + kPd + (f - 1) * kPa);
     }
   }
 
@@ -142,9 +119,9 @@ __global__ void __launch_bounds__(256)
   float md[kPd];
   float ma[kPa];
 #pragma unroll
-  for (int p = 0; p < kPd; ++p) md[p] = to_float<T>(md_g[p * d + c]);
+  for (int p = 0; p < kPd; ++p) md[p] = md_g[p * d + c];
 #pragma unroll
-  for (int p = 0; p < kPa; ++p) ma[p] = to_float<T>(ma_g[p * d + c]);
+  for (int p = 0; p < kPa; ++p) ma[p] = ma_g[p * d + c];
   const float bc = bias[c];
   __syncthreads();
 
@@ -158,7 +135,7 @@ __global__ void __launch_bounds__(256)
       e[kk] = dot_basis<kPa>(b + kPd + kk * kPa, ma);
       amax = fmaxf(amax, e[kk]);
     }
-    out[(p0 + pr) * d + c] = from_float<T>(__fadd_rn(__fadd_rn(acc, amax), bc));
+    out[(p0 + pr) * d + c] = __fadd_rn(__fadd_rn(acc, amax), bc);
     if (win != nullptr) {
       unsigned bits = 0;
 #pragma unroll
@@ -685,6 +662,330 @@ int launch_bwd(const void* d_idx, const void* a_idx, const void* win,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16 forward on the tensor cores.
+//
+// The products are out = Tb . M with Tb the tile's bases, pairs as rows
+// ([pair][basis] bf16 in shared memory: Td in columns 0..47, Ta_k in
+// 48 + 32 k .. + 31, the padding zero) and M^T as [channel][basis] (Md^T in
+// columns 0..47, Ma^T in 48..79, zero padded), both read by ldmatrix as
+// the A and B fragments of mma.sync m16n8k16.  The accumulators of Td . Md
+// and of each Ta_k . Ma sit in the same lanes and fragment positions, so
+// the max over k, its winner bits, + bias and the cast are an epilogue in
+// registers.  The instance that writes the winners (kWinners) adds only
+// the bits: the embedding's arithmetic is the same in both instances, so
+// the serving output equals the training call's bit for bit.  The bases
+// are the plain version's rounded recurrences and bf16 x bf16 products
+// are exact in float32, so only the order of the float32 sums differs
+// from it.
+//
+// What bounds it: bytes.  Per pair 2 d bytes of output (+ d of winners)
+// against 2 x 144 x d flops on the tensor cores, ~144 flops a byte, below
+// the card's ~295: 1.66 GB at the training shape with the winners.
+//
+// Design: a persistent grid (two blocks of d threads an SM) walks 32-pair
+// tiles; warp w owns channels 32 w .. 32 w + 31 (four n-tiles) and runs the
+// tile's two m-tiles in turn.  A tile's index fields come in by cp.async
+// one tile ahead; the block builds the tile's bases (128 recurrences, one
+// thread each) while the other block on the SM multiplies.  The epilogue
+// writes the bf16 tile and the winners tile to a staging buffer in shared
+// memory (rows padded 16 bytes: no bank conflicts), and the block copies
+// it out with 16-byte stores, each output row's in order across the
+// threads: the tile is one contiguous run of device memory (one
+// cp.async.bulk a row measured slower, most of all with the winners).  M^T
+// and the bias stay for the block's life.
+
+constexpr int kFT = 32;   // pairs of a forward tile (two m-tiles)
+constexpr int kFS = 152;  // bf16 row stride of the basis tile (144 used)
+constexpr int kMS = 88;   // bf16 row stride of M^T (80 used)
+constexpr int kIdxStage = kFT + kK * kFT;  // floats of a tile's index fields
+static_assert(kTdRows + kK * kTaRows <= kFS, "basis row");
+static_assert(kTdRows + kTaRows <= kMS, "M^T row");
+
+struct FwdLayout {
+  int o_stride, w_stride;  // staging row strides, bytes
+  int basis_off, mt_off, o_off, w_off, total;
+  __host__ __device__ explicit FwdLayout(int d) {
+    o_stride = 2 * d + 16;
+    w_stride = d + 16;
+    basis_off = 2 * kIdxStage * 4;  // two stages of index fields
+    mt_off = basis_off + kFT * kFS * 2;
+    o_off = mt_off + d * kMS * 2;
+    w_off = o_off + kFT * o_stride;
+    total = w_off + kFT * w_stride;
+  }
+};
+
+// The index fields of a forward tile: 8 chunks of d_idx, 24 of a_idx.
+__device__ __forceinline__ void fetch_idx(float* stage, const float* d_idx,
+                                          const float* a_idx, int64_t n_pairs,
+                                          int64_t p0, int tid) {
+  if (tid >= 32) return;
+  const int64_t npr = n_pairs - p0 < kFT ? n_pairs - p0 : kFT;
+  const bool is_d = tid < 8;
+  const int ci = is_d ? tid : tid - 8;
+  const int64_t n_bytes = (is_d ? npr : kK * npr) * 4;
+  const int64_t off = static_cast<int64_t>(ci) * 16;
+  const int64_t left = n_bytes - off;
+  const int bytes = left <= 0 ? 0 : (left >= 16 ? 16 : static_cast<int>(left));
+  const char* src = is_d ? reinterpret_cast<const char*>(d_idx + p0)
+                         : reinterpret_cast<const char*>(a_idx + kK * p0);
+  cp_async16(smem_addr(reinterpret_cast<char*>(stage) + (is_d ? 0 : kFT * 4) +
+                       off),
+             bytes ? src + off : src, bytes);
+}
+
+// One Chebyshev basis into a row of the basis tile, in the plain version's
+// rounded order, two bf16 values a store.
+template <int P>
+__device__ __forceinline__ void cheb_row(float raw, float scale,
+                                         __nv_bfloat16* dst) {
+  float x = __fsub_rn(__fmul_rn(raw, scale), 1.0f);
+  x = fminf(fmaxf(x, -1.0f), 1.0f);
+  const float x2 = __fmul_rn(2.0f, x);
+  float tp = 1.0f;
+  float tc = x;
+  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
+  d2[0] = __floats2bfloat162_rn(tp, tc);
+#pragma unroll
+  for (int p = 2; p < P; p += 2) {
+    const float t0 = __fsub_rn(__fmul_rn(x2, tc), tp);
+    const float t1 = __fsub_rn(__fmul_rn(x2, t0), tc);
+    tp = t0;
+    tc = t1;
+    d2[p / 2] = __floats2bfloat162_rn(t0, t1);
+  }
+}
+
+template <bool kWinners>
+__global__ void __launch_bounds__(256, 2)
+    geo_embed_fwd_mma_kernel(const float* __restrict__ d_idx,
+                             const float* __restrict__ a_idx,
+                             const __nv_bfloat16* __restrict__ md_g,
+                             const __nv_bfloat16* __restrict__ ma_g,
+                             const float* __restrict__ bias,
+                             __nv_bfloat16* __restrict__ out,
+                             uint8_t* __restrict__ win, int64_t n_pairs,
+                             int d, float scale_d, float scale_a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const FwdLayout L(d);
+  float* s_idx = reinterpret_cast<float*>(smem_raw);
+  __nv_bfloat16* basis =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + L.basis_off);
+  __nv_bfloat16* mt = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.mt_off);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;  // == d
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q = lane & 3;
+  const int r0 = lane >> 2;
+
+  // M^T for the block's life; the basis tile's padding stays zero.
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+  for (int i = tid; i < d * kMS; i += nthreads) {
+    const int c = i / kMS;
+    const int col = i - c * kMS;
+    __nv_bfloat16 v = zero;
+    if (col < kPd) {
+      v = md_g[col * d + c];
+    } else if (col >= kTdRows && col < kTdRows + kPa) {
+      v = ma_g[(col - kTdRows) * d + c];
+    }
+    mt[i] = v;
+  }
+  for (int i = tid; i < kFT * kFS; i += nthreads) basis[i] = zero;
+  float bc[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = 32 * warp + 8 * j + 2 * q;
+    bc[j][0] = bias[c];
+    bc[j][1] = bias[c + 1];
+  }
+
+  // ldmatrix lane addresses: A rows (pairs) lane % 16, columns 8 (lane / 16);
+  // B rows (channels) 32 w + 8 (lane / 16) + lane % 8 (two n-tiles a
+  // load), columns 8 ((lane / 8) % 2).
+  const uint32_t a_base =
+      smem_addr(basis) + ((lane & 15) * kFS + (lane >> 4) * 8) * 2;
+  const int b_row = 32 * warp + 8 * (lane >> 4) + (lane & 7);
+  const uint32_t b_base =
+      smem_addr(mt) + (b_row * kMS + 8 * ((lane >> 3) & 1)) * 2;
+
+  const int64_t n_tiles = (n_pairs + kFT - 1) / kFT;
+  int64_t tile = blockIdx.x;
+  if (tile < n_tiles) fetch_idx(s_idx, d_idx, a_idx, n_pairs, tile * kFT, tid);
+  cp_async_commit();
+
+  for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int st = it & 1;
+    const int64_t next = tile + gridDim.x;
+    if (next < n_tiles)
+      fetch_idx(s_idx + (st ^ 1) * kIdxStage, d_idx, a_idx, n_pairs,
+                next * kFT, tid);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's fields have landed
+    __syncthreads();     // ... for every thread; the basis tile is free
+
+    const int64_t p0 = tile * kFT;
+    const int npr = static_cast<int>(n_pairs - p0 < kFT ? n_pairs - p0 : kFT);
+    const float* idx = s_idx + st * kIdxStage;
+    for (int task = tid; task < (1 + kK) * kFT; task += nthreads) {
+      const int f = task / kFT;  // 0: distance; 1..3: angle k
+      const int pr = task - f * kFT;
+      if (f == 0) {
+        cheb_row<kPd>(idx[pr], scale_d, basis + pr * kFS);
+      } else {
+        cheb_row<kPa>(idx[kFT + pr * kK + f - 1], scale_a,
+                      basis + pr * kFS + kTdRows + (f - 1) * kTaRows);
+      }
+    }
+    __syncthreads();
+
+    unsigned char* os = smem_raw + L.o_off;
+    unsigned char* ws = smem_raw + L.w_off;
+#pragma unroll 1
+    for (int m = 0; m < kFT / 16; ++m) {
+      const uint32_t a_m = a_base + 16 * m * kFS * 2;
+      float acc[4][4], e[kK][4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          acc[j][t] = 0.0f;
+#pragma unroll
+          for (int kk = 0; kk < kK; ++kk) e[kk][j][t] = 0.0f;
+        }
+      // T(xd) . Md: three k-steps.
+#pragma unroll
+      for (int ks = 0; ks < kTdRows / 16; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, a_m + ks * 32);
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t b[4];
+          ldsm_x4(b, b_base + (16 * jp * kMS + 16 * ks) * 2);
+          mma_bf16(acc[2 * jp], a, b[0], b[1]);
+          mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+        }
+      }
+      // e_k = T(xa_k) . Ma, Ma's fragments shared by the three k.
+      uint32_t bm[2][4][2];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t b[4];
+          ldsm_x4(b, b_base + (16 * jp * kMS + kTdRows + 16 * ks) * 2);
+          bm[ks][2 * jp][0] = b[0];
+          bm[ks][2 * jp][1] = b[1];
+          bm[ks][2 * jp + 1][0] = b[2];
+          bm[ks][2 * jp + 1][1] = b[3];
+        }
+#pragma unroll
+      for (int kk = 0; kk < kK; ++kk)
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t a[4];
+          ldsm_x4(a, a_m + (kTdRows + kk * kTaRows + 16 * ks) * 2);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_bf16(e[kk][j], a, bm[ks][j][0], bm[ks][j][1]);
+        }
+      // Epilogue: fragment t of n-tile j is row 16 m + r0 (+ 8 for t >= 2),
+      // channel 32 w + 8 j + 2 q + (t & 1).
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 32 * warp + 8 * j + 2 * q;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = 16 * m + r0 + 8 * h;
+          float v[2];
+          unsigned bits = 0;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int t = 2 * h + u;
+            const float amax =
+                fmaxf(fmaxf(e[0][j][t], e[1][j][t]), e[2][j][t]);
+            v[u] = __fadd_rn(__fadd_rn(acc[j][t], amax), bc[j][u]);
+            if (kWinners) {
+#pragma unroll
+              for (int kk = 0; kk < kK; ++kk)
+                bits |= (e[kk][j][t] == amax ? 1u : 0u) << (kk + 8 * u);
+            }
+          }
+          *reinterpret_cast<__nv_bfloat162*>(os + row * L.o_stride + 2 * c) =
+              __floats2bfloat162_rn(v[0], v[1]);
+          if (kWinners) {
+            *reinterpret_cast<uint16_t*>(ws + row * L.w_stride + c) =
+                static_cast<uint16_t>(bits);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // The staged tile out to device memory: 16-byte chunks, each row's in
+    // order across the threads.
+    const int oc = d / 8;
+    for (int i = tid; i < npr * oc; i += nthreads) {
+      const int r = i / oc, c = i - r * oc;
+      *reinterpret_cast<uint4*>(out + (p0 + r) * d + 8 * c) =
+          *reinterpret_cast<const uint4*>(os + r * L.o_stride + 16 * c);
+    }
+    if (kWinners) {
+      const int wc = d / 16;
+      for (int i = tid; i < npr * wc; i += nthreads) {
+        const int r = i / wc, c = i - r * wc;
+        *reinterpret_cast<uint4*>(win + (p0 + r) * d + 16 * c) =
+            *reinterpret_cast<const uint4*>(ws + r * L.w_stride + 16 * c);
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <bool kWinners>
+int launch_fwd_mma(const float* d_idx, const float* a_idx,
+                   const __nv_bfloat16* md, const __nv_bfloat16* ma,
+                   const float* bias, __nv_bfloat16* out, uint8_t* win,
+                   long long n_pairs, int d, float scale_d, float scale_a,
+                   cudaStream_t st) {
+  const FwdLayout L(d);
+  auto kern = geo_embed_fwd_mma_kernel<kWinners>;
+  // Blocks: as many as the card holds at once (two an SM at d = 256),
+  // fixed per d after the first call.  The shared-memory limit is set
+  // once, for the largest d.
+  static int grid_for[9] = {0};
+  static bool attr_set = false;
+  cudaError_t err = cudaSuccess;
+  if (!attr_set) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               FwdLayout(256).total);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  int& grid = grid_for[d / 32];
+  if (grid == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, d,
+                                                          L.total);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    grid = sms * per_sm;
+  }
+  const long long n_tiles = (n_pairs + kFT - 1) / kFT;
+  const int blocks = static_cast<int>(n_tiles < grid ? n_tiles : grid);
+  if (blocks == 0) return 0;
+  kern<<<blocks, d, L.total, st>>>(d_idx, a_idx, md, ma, bias, out, win,
+                                   n_pairs, d, scale_d, scale_a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Backward: d_idx, a_idx, scale_* as for geo_embed_fwd; win (n_pairs, d)
@@ -719,22 +1020,23 @@ extern "C" int geo_embed_fwd(const void* d_idx, const void* a_idx,
                              float scale_d, float scale_a, int is_bf16,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned blocks =
-      static_cast<unsigned>((n_pairs + kTile - 1) / kTile);
   const float* di = static_cast<const float*>(d_idx);
   const float* ai = static_cast<const float*>(a_idx);
   const float* bi = static_cast<const float*>(bias);
   if (is_bf16) {
-    geo_embed_fwd_kernel<__nv_bfloat16><<<blocks, d, 0, st>>>(
-        di, ai, static_cast<const __nv_bfloat16*>(md),
-        static_cast<const __nv_bfloat16*>(ma), bi,
-        static_cast<__nv_bfloat16*>(out), static_cast<uint8_t*>(win), n_pairs,
-        d, scale_d, scale_a);
-  } else {
-    geo_embed_fwd_kernel<float><<<blocks, d, 0, st>>>(
-        di, ai, static_cast<const float*>(md), static_cast<const float*>(ma),
-        bi, static_cast<float*>(out), static_cast<uint8_t*>(win), n_pairs, d,
-        scale_d, scale_a);
+    auto launch = win != nullptr ? launch_fwd_mma<true>
+                                 : launch_fwd_mma<false>;
+    return launch(di, ai, static_cast<const __nv_bfloat16*>(md),
+                  static_cast<const __nv_bfloat16*>(ma), bi,
+                  static_cast<__nv_bfloat16*>(out),
+                  static_cast<uint8_t*>(win), n_pairs, d, scale_d, scale_a,
+                  st);
   }
+  const unsigned blocks =
+      static_cast<unsigned>((n_pairs + kTile - 1) / kTile);
+  geo_embed_fwd_kernel<<<blocks, d, 0, st>>>(
+      di, ai, static_cast<const float*>(md), static_cast<const float*>(ma),
+      bi, static_cast<float*>(out), static_cast<uint8_t*>(win), n_pairs, d,
+      scale_d, scale_a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,7 @@ for a tensor on the CPU.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -20,12 +21,79 @@ _I = ctypes.c_int
 KERNEL = Kernel(
     "fps", "fps.cu",
     replaces="sam6d_tpu/ops/pallas/fps_kernel.py:117",
-    signatures={"fps_launch": [_V, _V, _V, _I, _I, _I, _I, _I, _V]},
+    signatures={"fps_launch": [_V, _V, _V] + [_I] * 7 + [_V]},
 )
 
-# Largest row whose points and distance field (16 B a point) the kernel
-# keeps in shared memory; the card allows 227 KB a block.
-SHARED_BYTES = 200 * 1024
+# The card: 132 SMs; clusters of at most 16 blocks.
+SMS = 132
+MAX_CLUSTER = 16
+ROUTES = ("block", "cluster", "global")
+# Points a thread of the 1024-thread instances (`csrc/fps.cu`); a block's
+# share of the row is padded to per x 1024 points in shared memory, at
+# most 221,184 B of the 232,448 B a block may have.
+PERS = (4, 8, 10, 13, 16, 18)
+# Per-request rows (N <= 2048): one block a row of 8 warps ("block8"), 4
+# warps ("block4") or one warp ("warp"), the points in registers but for
+# one warp.  8 warps measured fastest on the H100 (PERF.md, §6).
+SMALL_ROWS = {"warp": (32, 64), "block4": (128, 16), "block8": (256, 8)}
+SMALL_ROW = "block8"
+# Training's template rows (2048 < N <= 18432): one block a row ("block")
+# or a cluster of blocks of 4 points a thread ("cluster"); one block
+# measured faster at (28, 10000).
+MID_ROWS = ("block", "cluster")
+MID_ROW = "block"
+
+
+class FpsPlan(NamedTuple):
+    """How one launch spreads a row: `route` (see `csrc/fps.cu`), blocks a
+    row (`cluster`), `threads` a block, `smem_bytes` of dynamic shared
+    memory a block, `per` points a thread: a block holds `chunk` points of
+    the row, padded to per x threads."""
+
+    route: str
+    cluster: int
+    threads: int
+    smem_bytes: int
+    per: int
+    chunk: int
+
+
+def _plan_1024(route: str, cluster: int, chunk: int) -> FpsPlan:
+    per = next(p for p in PERS if p * 1024 >= chunk)
+    return FpsPlan(route, cluster, 1024, 12 * per * 1024, per, chunk)
+
+
+def fps_plan(B: int, N: int, small: str = SMALL_ROW,
+             mid: str = MID_ROW) -> FpsPlan:
+    """The route of a (B, N, 3) call, chosen by the row's size.
+
+    - N <= 2048 (a request's or a training step's 196 from 2048): one block
+      a row, of the threads and points a thread that `SMALL_ROWS[small]`
+      gives.
+    - N <= 18432 (a training step's template clouds, 10000): one block of
+      1024 threads a row (`mid="block"`); or (`mid="cluster"`) a cluster of
+      ceil(N / 4096) blocks of 1024 threads, 4 points a thread in
+      registers, where that is 2 or more blocks and B x cluster fits the
+      132 SMs.
+    - Larger rows (the 210k onboarding cloud): the smallest cluster of 2,
+      4, 8 or 16 blocks whose threads hold at most 13 points each, else 16
+      blocks of at most 18 (294,912 points a row).
+    - Beyond that: the device-memory route, one block of 1024 a row.
+    """
+    if N <= 2048:
+        threads, per = SMALL_ROWS[small]
+        return FpsPlan("block", 1, threads, 12 * 2048, per, N)
+    if N <= PERS[-1] * 1024:
+        c = -(-N // 4096)
+        if mid == "cluster" and c > 1 and B * c <= SMS:
+            return FpsPlan("cluster", c, 1024, 12 * 4096, 4, -(-N // c))
+        return _plan_1024("block", 1, N)
+    for c in (2, 4, 8, 16):
+        chunk = -(-N // c)
+        if chunk <= 13 * 1024 or (c == MAX_CLUSTER
+                                  and chunk <= PERS[-1] * 1024):
+            return _plan_1024("cluster", c, chunk)
+    return FpsPlan("global", 1, 1024, 0, 0, N)
 
 
 def fps_plain(pts: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -53,23 +121,37 @@ def fps_plain(pts: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
-def fps_cuda(pts: torch.Tensor, npoint: int) -> torch.Tensor:
+def fps_cuda(pts: torch.Tensor, npoint: int,
+             plan: FpsPlan | None = None) -> torch.Tensor:
     check_cuda(pts, "pts", torch.float32, ndim=3)
     B, N, C = pts.shape
     if C != 3 or not 1 <= npoint <= N:
         raise ValueError(f"fps: bad shape {tuple(pts.shape)} -> {npoint}")
+    plan = plan or fps_plan(B, N)
+    bufs = prepare(pts, npoint, plan)
+    launch(pts, npoint, plan, *bufs)
+    return bufs[0]
+
+
+def prepare(pts, npoint: int, plan: FpsPlan):
+    """The launch's output (B, npoint) int64 and, on the device-memory
+    route, its field scratch (B, N) float32."""
+    B, N, _ = pts.shape
     out = torch.empty((B, npoint), dtype=torch.long, device=pts.device)
-    use_shared = 16 * N <= SHARED_BYTES
-    scratch = None if use_shared else torch.empty(
-        (B, N), dtype=torch.float32, device=pts.device
-    )
-    threads = 256 if N <= 4096 else 1024
+    scratch = (torch.empty((B, N), dtype=torch.float32, device=pts.device)
+               if plan.route == "global" else None)
+    return out, scratch
+
+
+def launch(pts, npoint: int, plan: FpsPlan, out, scratch) -> None:
+    """One K1 launch on checked, prepared operands (`prepare`)."""
+    B, N, _ = pts.shape
     KERNEL.launches += 1
     KERNEL.call(
         "fps_launch", ptr(pts), ptr(scratch), ptr(out), B, N, npoint,
-        threads, int(use_shared), current_stream(pts.device),
+        ROUTES.index(plan.route), plan.cluster, plan.threads, plan.per,
+        current_stream(pts.device),
     )
-    return out
 
 
 def furthest_point_sample(pts: torch.Tensor, npoint: int) -> torch.Tensor:

@@ -109,16 +109,32 @@ def geo_embed_maxk_cuda(d_idx, a_idx, Md, Ma, bias, hi_d: float,
             f"a_idx {tuple(a_idx.shape)}, Md {tuple(Md.shape)}, "
             f"Ma {tuple(Ma.shape)}"
         )
-    out = torch.empty((B, N, M, d), dtype=out_dtype, device=d_idx.device)
-    win = (torch.empty((B, N, M, d), dtype=torch.uint8, device=d_idx.device)
+    if any(t.data_ptr() % 16 for t in (d_idx, a_idx)):
+        raise ValueError("geo_embed: index fields must be 16-byte aligned")
+    out, win = prepare_fwd(d_idx, d, out_dtype, winners)
+    launch_fwd(d_idx, a_idx, Md, Ma, bias, hi_d, hi_a, out, win)
+    return (out, win) if winners else out
+
+
+def prepare_fwd(d_idx, d: int, out_dtype, winners: bool):
+    """The forward's outputs: the embedding and, with `winners`, the
+    winners (else None)."""
+    shape = (*d_idx.shape, d)
+    out = torch.empty(shape, dtype=out_dtype, device=d_idx.device)
+    win = (torch.empty(shape, dtype=torch.uint8, device=d_idx.device)
            if winners else None)
+    return out, win
+
+
+def launch_fwd(d_idx, a_idx, Md, Ma, bias, hi_d, hi_a, out, win) -> None:
+    """One K2 launch on checked, prepared operands (`prepare_fwd`)."""
     KERNEL.launches += 1
     KERNEL.call(
         "geo_embed_fwd", ptr(d_idx), ptr(a_idx), ptr(Md), ptr(Ma), ptr(bias),
-        ptr(out), ptr(win), B * N * M, d, 2.0 / hi_d, 2.0 / hi_a,
-        int(out_dtype == torch.bfloat16), current_stream(d_idx.device),
+        ptr(out), ptr(win), d_idx.numel(), Md.shape[1], 2.0 / hi_d,
+        2.0 / hi_a, int(out.dtype == torch.bfloat16),
+        current_stream(d_idx.device),
     )
-    return (out, win) if winners else out
 
 
 def geo_embed_maxk_bwd_plain(d_idx, a_idx, win, g, hi_d: float, hi_a: float,

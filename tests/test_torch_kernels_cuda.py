@@ -58,6 +58,66 @@ def test_fps_kernel_matches_plain_at_near_ties(dev):
     assert torch.equal(got, fps_mod.fps_plain(pts, 40))
 
 
+def _cross_block_ties(N, kind, seed=0):
+    """(1, N, 3) clouds with exact ties between points that different
+    blocks of a cluster hold: "dup" repeats the first half's points (integer
+    coordinates) at j + N / 2; "lattice" is an integer lattice of at least
+    N points, cut to N, whose equal distances span the blocks' chunks."""
+    rng = np.random.RandomState(seed)
+    if kind == "dup":
+        half = rng.randint(0, 64, (N // 2, 3))
+        pts = np.concatenate([half, half])
+    else:
+        side = int(np.ceil(N ** (1 / 3)))
+        g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1)
+        pts = g.reshape(-1, 3)[:N]
+    return pts[None].astype(np.float32)
+
+
+@pytest.mark.parametrize("B,N,npoint,plan", [
+    (3, 2048, 196, fps_mod.fps_plan(3, 2048, small="warp")),
+    (3, 2048, 196, fps_mod.fps_plan(3, 2048, small="block4")),
+    (3, 2048, 196, fps_mod.fps_plan(3, 2048, small="block8")),
+    (2, 1000, 196, fps_mod.fps_plan(2, 1000)),
+    (2, 10000, 512, fps_mod.fps_plan(2, 10000, mid="block")),
+    (2, 10000, 512, fps_mod.fps_plan(2, 10000, mid="cluster")),
+    (1, 3000, 512, fps_mod.fps_plan(1, 3000)),
+    (2, 65536, 256, fps_mod.fps_plan(2, 65536)),
+    (1, 294912, 64, fps_mod.fps_plan(1, 294912)),
+    (1, 400000, 64, fps_mod.fps_plan(1, 400000)),
+])
+def test_fps_every_route_matches_plain(dev, B, N, npoint, plan):
+    g = torch.Generator(device=dev).manual_seed(N + B)
+    pts = torch.rand(B, N, 3, generator=g, device=dev) * 0.2 - 0.1
+    got = fps_mod.fps_cuda(pts, npoint, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_mod.fps_plain(pts, npoint))
+
+
+def test_fps_cluster_route_at_the_onboarding_shape(dev):
+    plan = fps_mod.fps_plan(1, 210000)
+    assert plan.route == "cluster" and plan.cluster == 16
+    g = torch.Generator(device=dev).manual_seed(7)
+    pts = torch.randn(1, 210000, 3, generator=g, device=dev) * 0.04
+    got = fps_mod.fps_cuda(pts, 2048)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_mod.fps_plain(pts, 2048))
+
+
+@pytest.mark.parametrize("kind", ["dup", "lattice"])
+@pytest.mark.parametrize("N", [210000, 20000])
+def test_fps_cluster_breaks_cross_block_ties_to_the_lowest_index(dev, kind,
+                                                                 N):
+    plan = fps_mod.fps_plan(1, N)
+    assert plan.route == "cluster"
+    pts = torch.from_numpy(_cross_block_ties(N, kind)).to(dev)
+    got = fps_mod.fps_cuda(pts, 512)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_mod.fps_plain(pts, 512))
+    if kind == "dup":  # a duplicate at j + N / 2 never wins over j
+        assert bool((got < N // 2).all())
+
+
 @torch.no_grad()
 def _geo_inputs(dev, B, N, d, dtype, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -110,6 +170,26 @@ def test_geo_embed_winners_match_plain(dev, dtype, ties):
         assert bool((win == 7).all()) and bool((want == 7).all())
     else:
         assert float((win != want).float().mean()) <= 1e-4
+
+
+@pytest.mark.parametrize("B,N,d", [(56, 197, 256), (3, 7, 64)])
+def test_geo_embed_bf16_with_winners_at_training_and_ragged_shapes(dev, B, N,
+                                                                    d):
+    # The tensor-core forward at the training shape and at a ragged pair
+    # count (147 pairs: a partial 32-pair tile), against the plain version:
+    # the embedding within one bf16 step, the winners at all but 1e-4 of
+    # the entries, the serving call equal bit for bit.
+    dtype = torch.bfloat16
+    d_idx, a_idx, Md, Ma, bias = _geo_inputs(dev, B, N, d, dtype, seed=B)
+    args = (d_idx, a_idx, Md, Ma, bias, 20.0, 12.0, dtype)
+    out, win = ge.geo_embed_maxk_cuda(*args, winners=True)
+    serving = ge.geo_embed_maxk_cuda(*args)
+    want, want_win = ge.geo_embed_maxk_plain(*args, winners=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, serving)
+    torch.testing.assert_close(out.float(), want.float(), atol=1e-2,
+                               rtol=8e-3)
+    assert float((win != want_win).float().mean()) <= 1e-4
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
