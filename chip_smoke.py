@@ -14,9 +14,9 @@ process per source, all at once), then:
    the same function, that call's time as a yardstick (K4/K5 also at
    ragged shapes, through the wrapper and as one bare launch, that
    launch also timed alone in bursts; K1, K2, K3 and K6 also timed alone;
-   K1 through the route its plan picks at each shape, beside the design
-   the plan passed over; K2 at the training shape also with the winners
-   that K3 reads, both kernels fed the same winners); plus the
+   K1 through the route its plan picks at each shape; K2 at the training
+   shape also with the winners that K3 reads, both kernels fed the same
+   winners); plus the
    tiny-config PEM template bank, a tiny-config ISM frame (float32) and
    bfloat16 SAM-encoder and DINOv2 blocks at the full model's head dims
    on the card against the same computed on the CPU;
@@ -47,14 +47,6 @@ Any failure exits non-zero.  The last lines are the nvidia-smi name and
 power limit, {"kernels": [...]}, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Details also go to chiprun_out/chip_smoke.json.
-
-    python3 chip_smoke.py --parent build/parent
-
-also builds K1 and K2 from the checkout in build/parent (for example
-`git archive` of the parent commit) and times them alone beside this
-tree's, on the same inputs, in turns (`parent_kernel_ms`), and phase 3
-times warm onboardings with the parent's K1 and K2 in turns with this
-tree's (`onboard_warm_vs_parent_ms`).
 """
 
 from __future__ import annotations
@@ -238,71 +230,11 @@ def ptxas_summary(build_log: str) -> dict:
     return out
 
 
-# `--parent DIR`: an earlier checkout (a `git archive` of the parent
-# commit, unpacked under build/).  Its K1 and K2 are built from its own
-# sources beside this tree's and timed alone on the same inputs, in turns
-# with this tree's kernels (`parent_kernel_ms`).
-PARENT = {}
-
-
-def load_parent(root: Path):
-    """K1 and K2 of the checkout at `root`, through the C interfaces of
-    the designs before the FPS routes: fps_launch(pts, scratch, out, b, n,
-    npoint, threads, use_shared, stream) and geo_embed_fwd as it is now."""
-    import ctypes
-
-    from sam6d_tpu_torch.ops import _kernels
-
-    V, I = ctypes.c_void_p, ctypes.c_int
-    csrc = root / "sam6d_tpu_torch" / "csrc"
-    fps_k = _kernels.Kernel("fps (parent)", "fps.cu", "",
-                            {"fps_launch": [V, V, V] + [I] * 5 + [V]})
-    geo_k = _kernels.Kernel(
-        "geo_embed_fwd (parent)", "geo_embed.cu", "",
-        {"geo_embed_fwd": [V] * 7 + [ctypes.c_longlong, I, ctypes.c_float,
-                                     ctypes.c_float, I, V]})
-    fps_k.source, geo_k.source = csrc / "fps.cu", csrc / "geo_embed.cu"
-    _kernels.build_all([fps_k, geo_k])
-    PARENT.update(fps=fps_k, geo=geo_k, root=str(root))
-
-
-def parent_fps_launch(pts, npoint, plan, out, scratch=None):
-    """The parent's K1 into `out`, with the parent wrapper's choices: the
-    points and field in shared memory up to 200 KB (16 B a point), 256
-    threads up to 4096 points, else 1024.  `plan` is not read: the
-    signature is `fps.launch`'s."""
-    import torch
-
-    from sam6d_tpu_torch.ops._kernels import current_stream, ptr
-
-    B, N, _ = pts.shape
-    shared = 16 * N <= 200 * 1024
-    if not shared and scratch is None:
-        scratch = torch.empty((B, N), device=pts.device)
-    PARENT["fps"].call(
-        "fps_launch", ptr(pts), ptr(scratch), ptr(out), B, N, npoint,
-        256 if N <= 4096 else 1024, int(shared), current_stream(pts.device))
-
-
-def parent_geo_launch(d_idx, a_idx, Md, Ma, bias, hi_d, hi_a, out, win):
-    """The parent's K2 into `out` (and `win`): `geo_embed.launch_fwd`'s
-    signature."""
-    from sam6d_tpu_torch.ops._kernels import current_stream, ptr
-
-    PARENT["geo"].call(
-        "geo_embed_fwd", ptr(d_idx), ptr(a_idx), ptr(Md), ptr(Ma), ptr(bias),
-        ptr(out), ptr(win), d_idx.numel(), Md.shape[1], 2.0 / hi_d,
-        2.0 / hi_a, int(out.dtype.itemsize == 2), current_stream(d_idx.device))
-
-
 def check_fps(dev):
     """K1 at the paths' five shapes, each through the route that `fps_plan`
     picks: indices equal to the plain version's; times through the wrapper
     (`ms`), alone (`kernel_ms`: 20 bare launches on a prepared output
-    between two events) and of the plain version.  Where the plan chose
-    among designs on this card's measurements, the others are checked and
-    timed alone too (`others_kernel_ms`): one warp, 4 and 8 warps a row at
-    2048 points, one block a row and a cluster at 10000."""
+    between two events) and of the plain version."""
     import torch
 
     from sam6d_tpu_torch.ops import fps
@@ -317,52 +249,27 @@ def check_fps(dev):
         g = torch.Generator(device=dev).manual_seed(N + B)
         pts = torch.rand(B, N, 3, generator=g, device=dev) * 0.2 - 0.1
         plan = fps.fps_plan(B, N)
-        # The designs that the plan passed over at this size.
-        plans = {"kernel": plan}
-        if N <= 2048:
-            plans.update({s: fps.fps_plan(B, N, small=s)
-                          for s in fps.SMALL_ROWS if s != fps.SMALL_ROW})
-        elif N <= fps.PERS[-1] * 1024:
-            plans.update({m: fps.fps_plan(B, N, mid=m)
-                          for m in fps.MID_ROWS if m != fps.MID_ROW})
+        got = fps.fps_cuda(pts, npoint)
+        bufs = fps.prepare(pts, npoint, plan)
+        fps.launch(pts, npoint, plan, *bufs)
         want = fps.fps_plain(pts, npoint)
-        bare = {}
-        for name, pl in plans.items():
-            got = fps.fps_cuda(pts, npoint, pl)
-            bufs = fps.prepare(pts, npoint, pl)
-            fps.launch(pts, npoint, pl, *bufs)
-            torch.cuda.synchronize()
-            require(torch.equal(got, want) and torch.equal(bufs[0], want),
-                    f"fps {B}x{N}->{npoint} ({pl}): indices differ")
-            bare[name] = (lambda pl=pl, bufs=bufs:
-                          fps.launch(pts, npoint, pl, *bufs))
-        if PARENT:
-            p_out = torch.empty_like(want)
-            p_scr = torch.empty((B, N), device=dev)
-            bare["parent"] = lambda: parent_fps_launch(pts, npoint, None,
-                                                       p_out, p_scr)
-            bare["parent"]()
-            torch.cuda.synchronize()
-            require(torch.equal(p_out, want),
-                    f"fps {B}x{N}->{npoint}: the parent's indices differ")
+        torch.cuda.synchronize()
+        err = max(int((got - want).abs().max()),
+                  int((bufs[0] - want).abs().max()))
+        require(err == 0, f"fps {B}x{N}->{npoint} ({plan}): indices differ")
         t = time_in_turns({"kernel": lambda: fps.fps_cuda(pts, npoint),
                            "plain": lambda: fps.fps_plain(pts, npoint)}, reps)
-        tb = time_in_turns(bare, max(3, reps // 2), burst=20)
+        tb = time_in_turns(
+            {"kernel": lambda: fps.launch(pts, npoint, plan, *bufs)},
+            max(3, reps // 2), burst=20)
         # Input read once, indices written once; ~10 float32 operations
         # per point and step (3 sub, 3 mul, 2 add, min, compare).
         b_ms, b_by = bound(B * N * 12 + B * npoint * 8,
                            B * (npoint - 1) * N * 10, "float32")
         row = dict(shape=f"({B},{N},3)->{npoint}", route=plan.route,
                    cluster=plan.cluster, threads=plan.threads, per=plan.per,
-                   max_abs_err=0,
-                   ms=t["kernel"], kernel_ms=tb["kernel"],
+                   max_abs_err=err, ms=t["kernel"], kernel_ms=tb["kernel"],
                    plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by)
-        if PARENT:
-            row["parent_kernel_ms"] = tb["parent"]
-        row["others_kernel_ms"] = {
-            f"{n}: {o.route}, cluster {o.cluster}, {o.threads} threads of "
-            f"{o.per} points": tb[n] for n, o in plans.items()
-            if n != "kernel"}
         rows.append(row)
         log(f"fps {row}")
     return rows
@@ -442,19 +349,6 @@ def check_geo_embed(dev):
                 bufs_w = geo_embed.prepare_fwd(d_idx, d, dtype, True)
                 bare["kernel_winners"] = lambda: geo_embed.launch_fwd(
                     *args[:7], *bufs_w)
-            if PARENT:
-                p_out = torch.empty_like(bufs[0])
-                bare["parent"] = lambda: parent_geo_launch(*args[:7], p_out,
-                                                           None)
-                if B == 56:
-                    p_win = torch.empty_like(bufs_w[1])
-                    bare["parent_winners"] = lambda: parent_geo_launch(
-                        *args[:7], p_out, p_win)
-                bare["parent"]()
-                torch.cuda.synchronize()
-                require(bool(((p_out.float() - want).abs()
-                              <= atol + rtol * want.abs()).all()),
-                        f"geo_embed B={B} {dtype}: the parent's output")
             tb = time_in_turns(bare, reps=5, burst=20)
             bare["kernel"]()
             torch.cuda.synchronize()
@@ -463,12 +357,6 @@ def check_geo_embed(dev):
             extra["kernel_ms"] = tb["kernel"]
             if "kernel_winners" in tb:
                 extra["kernel_ms_winners"] = tb["kernel_winners"]
-            if PARENT:
-                extra["parent_kernel_ms"] = tb["parent"]
-                if B == 56:
-                    extra["parent_kernel_ms_winners"] = tb["parent_winners"]
-                    del p_win
-                del p_out
             del bufs, bufs_w, bare
             es = torch.finfo(dtype).bits // 8
             pairs = B * N * N
@@ -612,29 +500,6 @@ def phase_slice(dev):
         ev[1].synchronize()
         warm_ms.append(ev[0].elapsed_time(ev[1]))
 
-    # With --parent: warm onboardings with the parent's K1 and K2 launched
-    # in place of this tree's, in turns with this tree's.
-    vs_parent = {}
-    if PARENT:
-        ours = (fps.launch, geo_embed.launch_fwd)
-        theirs = (parent_fps_launch, parent_geo_launch)
-        vs_parent = {"change": [], "parent": []}
-        for r in range(6):
-            for side in (("change", "parent") if r % 2 == 0
-                         else ("parent", "change")):
-                fps.launch, geo_embed.launch_fwd = (
-                    ours if side == "change" else theirs)
-                try:
-                    ev[0].record()
-                    runner.onboard_arrays(**tem)
-                    ev[1].record()
-                    ev[1].synchronize()
-                finally:
-                    fps.launch, geo_embed.launch_fwd = ours
-                vs_parent[side].append(ev[0].elapsed_time(ev[1]))
-        log(f"warm onboarding in turns, this tree's K1/K2 against the "
-            f"parent's: {vs_parent}")
-
     for k in kernels:
         require(launches[k.name] > 0, f"{k.name} never ran on the main path")
     for inp, out in zip(requests, outs):
@@ -658,7 +523,6 @@ def phase_slice(dev):
     log(f"main-path launches {launches}; outputs finite, |det R - 1| < 1e-2")
     return runner, request, dict(
         onboard_ms=onboard_ms, onboard_warm_ms=warm_ms,
-        onboard_warm_vs_parent_ms=vs_parent,
         onboard_launches=onboard_launches,
         request_ms=req_ms, request_launches=req_launches, launches=launches)
 
@@ -1558,9 +1422,6 @@ def main():
     torch.cuda.set_device(dev)
     log("== phase 1: environment and build")
     smi, name, build_s, ptxas = phase_environment()
-    if "--parent" in sys.argv:
-        load_parent(Path(sys.argv[sys.argv.index("--parent") + 1]).resolve())
-        log(f"parent kernels built from {PARENT['root']}")
     log("== phase 2: kernels against their plain versions")
     fps_rows = check_fps(dev)
     geo_rows = check_geo_embed(dev)

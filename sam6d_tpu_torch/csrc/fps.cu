@@ -15,12 +15,13 @@
 //
 // Design: the plan (ops/fps.py:fps_plan) picks a route by the row's size.
 //
-//   block    one block a row (32, 128, 256 or 1024 threads).  The row's points
-//            live in shared memory as structure of arrays, or in
-//            registers, each thread's share of the distance field in
-//            registers (kPer values).  The argmax of a warp is two
-//            redux.sync instructions on order-preserving keys (the
-//            field's bits; then the lowest index at the maximum); with
+//   block    one block a row (256 or 1024 threads).  The row's points
+//            live in shared memory as structure of arrays (at 256
+//            threads of 8 points, or 1024 of 4, also in registers), each
+//            thread's share of the distance field in registers (kPer
+//            values).  The argmax of a warp is two redux.sync
+//            instructions on order-preserving keys (the field's bits;
+//            then the lowest index at the maximum); with
 //            more than one warp, one barrier and the same over the warps'
 //            candidates, in slots whose parity alternates by step so that
 //            a fast warp's next candidate never overwrites a slot that a
@@ -292,18 +293,24 @@ int launch(const float* p, int64_t* o, int b, int n, int npoint, int cluster,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(12) * kPer * kThreads;
   auto kern = fps_kernel<kPer, kRegPts, kThreads, kCluster>;
-  int err = static_cast<int>(cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
-  if (err != 0) return err;
+  // The instance's attributes are set at its first launch; the clusters it
+  // can place, at the first launch of each cluster size.
+  static bool attrs_set = false;
+  static int active_for[kMaxCluster + 1] = {0};
+  int err = 0;
+  if (!attrs_set) {
+    err = static_cast<int>(cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem)));
+    if (err == 0 && kCluster)
+      err = static_cast<int>(cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+    if (err != 0) return err;
+    attrs_set = true;
+  }
   if (!kCluster) {
     kern<<<b, kThreads, smem, st>>>(p, o, n, npoint, chunk);
     return static_cast<int>(cudaGetLastError());
-  }
-  if (cluster > 8) {
-    err = static_cast<int>(cudaFuncSetAttribute(
-        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
-    if (err != 0) return err;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(b * cluster));
@@ -318,23 +325,29 @@ int launch(const float* p, int64_t* o, int b, int n, int npoint, int cluster,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   // A cluster that the card cannot place would never run: refuse it.
-  int active = 0;
-  err = static_cast<int>(cudaOccupancyMaxActiveClusters(&active, kern, &cfg));
-  if (err != 0) return err;
-  if (active < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  int& active = active_for[cluster];
+  if (active == 0) {
+    err = static_cast<int>(
+        cudaOccupancyMaxActiveClusters(&active, kern, &cfg));
+    if (err != 0) return err;
+    if (active < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  }
   err = static_cast<int>(cudaLaunchKernelEx(&cfg, kern, p, o, n, npoint,
                                             chunk));
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }
 
-// The 1024-thread instances, by points a thread.
+// The 1024-thread instances, by points a thread (a cluster's blocks hold
+// more than 4096 points each).
 template <bool kCluster>
 int launch_1024(const float* p, int64_t* o, int b, int n, int npoint,
                 int cluster, int per, cudaStream_t st) {
   switch (per) {
     case 4:
-      return launch<4, true, 1024, kCluster>(p, o, b, n, npoint, cluster, st);
+      if constexpr (!kCluster)
+        return launch<4, true, 1024, false>(p, o, b, n, npoint, 1, st);
+      return static_cast<int>(cudaErrorInvalidValue);
     case 8:
       return launch<8, false, 1024, kCluster>(p, o, b, n, npoint, cluster,
                                               st);
@@ -358,12 +371,11 @@ int launch_1024(const float* p, int64_t* o, int b, int n, int npoint,
 }  // namespace
 
 // pts (b, n, 3) f32, out (b, npoint) int64; the route and its geometry
-// come from ops/fps.py:fps_plan.  route 0 "block": 32 threads of 64
-// points, 128 threads of 16 or 256 of 8 (points in registers), or 1024
-// threads of per in {4, 8, 10, 13, 16, 18}; route 1 "cluster": cluster
-// blocks a row
-// of 1024 threads of per points; route 2 "global": dist_scratch (b, n)
-// f32, threads a block.  Returns the CUDA error of the launch; a geometry
+// come from ops/fps.py:fps_plan.  route 0 "block": 256 threads of 8
+// points (in registers), or 1024 threads of per in {4, 8, 10, 13, 16,
+// 18}; route 1 "cluster": cluster blocks a row of 1024 threads of per in
+// {8, 10, 13, 16, 18}; route 2 "global": dist_scratch (b, n) f32,
+// threads a block.  Returns the CUDA error of the launch; a geometry
 // that no instance takes returns cudaErrorInvalidValue, a cluster that
 // cannot be scheduled cudaErrorLaunchOutOfResources.
 extern "C" int fps_launch(const void* pts, void* dist_scratch, void* out,
@@ -372,10 +384,6 @@ extern "C" int fps_launch(const void* pts, void* dist_scratch, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(pts);
   int64_t* o = static_cast<int64_t*>(out);
-  if (route == 0 && threads == 32 && per == 64)
-    return launch<64, false, 32, false>(p, o, b, n, npoint, 1, st);
-  if (route == 0 && threads == 128 && per == 16)
-    return launch<16, true, 128, false>(p, o, b, n, npoint, 1, st);
   if (route == 0 && threads == 256 && per == 8)
     return launch<8, true, 256, false>(p, o, b, n, npoint, 1, st);
   if (route == 0 && threads == 1024)

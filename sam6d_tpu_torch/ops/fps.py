@@ -9,6 +9,7 @@ for a tensor on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -24,24 +25,12 @@ KERNEL = Kernel(
     signatures={"fps_launch": [_V, _V, _V] + [_I] * 7 + [_V]},
 )
 
-# The card: 132 SMs; clusters of at most 16 blocks.
-SMS = 132
 MAX_CLUSTER = 16
 ROUTES = ("block", "cluster", "global")
 # Points a thread of the 1024-thread instances (`csrc/fps.cu`); a block's
 # share of the row is padded to per x 1024 points in shared memory, at
 # most 221,184 B of the 232,448 B a block may have.
 PERS = (4, 8, 10, 13, 16, 18)
-# Per-request rows (N <= 2048): one block a row of 8 warps ("block8"), 4
-# warps ("block4") or one warp ("warp"), the points in registers but for
-# one warp.  8 warps measured fastest on the H100 (PERF.md, §6).
-SMALL_ROWS = {"warp": (32, 64), "block4": (128, 16), "block8": (256, 8)}
-SMALL_ROW = "block8"
-# Training's template rows (2048 < N <= 18432): one block a row ("block")
-# or a cluster of blocks of 4 points a thread ("cluster"); one block
-# measured faster at (28, 10000).
-MID_ROWS = ("block", "cluster")
-MID_ROW = "block"
 
 
 class FpsPlan(NamedTuple):
@@ -63,30 +52,22 @@ def _plan_1024(route: str, cluster: int, chunk: int) -> FpsPlan:
     return FpsPlan(route, cluster, 1024, 12 * per * 1024, per, chunk)
 
 
-def fps_plan(B: int, N: int, small: str = SMALL_ROW,
-             mid: str = MID_ROW) -> FpsPlan:
+@functools.lru_cache(maxsize=64)
+def fps_plan(B: int, N: int) -> FpsPlan:
     """The route of a (B, N, 3) call, chosen by the row's size.
 
     - N <= 2048 (a request's or a training step's 196 from 2048): one block
-      a row, of the threads and points a thread that `SMALL_ROWS[small]`
-      gives.
+      of 8 warps a row, 8 points a thread in registers.
     - N <= 18432 (a training step's template clouds, 10000): one block of
-      1024 threads a row (`mid="block"`); or (`mid="cluster"`) a cluster of
-      ceil(N / 4096) blocks of 1024 threads, 4 points a thread in
-      registers, where that is 2 or more blocks and B x cluster fits the
-      132 SMs.
+      1024 threads a row.
     - Larger rows (the 210k onboarding cloud): the smallest cluster of 2,
       4, 8 or 16 blocks whose threads hold at most 13 points each, else 16
       blocks of at most 18 (294,912 points a row).
     - Beyond that: the device-memory route, one block of 1024 a row.
     """
     if N <= 2048:
-        threads, per = SMALL_ROWS[small]
-        return FpsPlan("block", 1, threads, 12 * 2048, per, N)
+        return FpsPlan("block", 1, 256, 12 * 2048, 8, N)
     if N <= PERS[-1] * 1024:
-        c = -(-N // 4096)
-        if mid == "cluster" and c > 1 and B * c <= SMS:
-            return FpsPlan("cluster", c, 1024, 12 * 4096, 4, -(-N // c))
         return _plan_1024("block", 1, N)
     for c in (2, 4, 8, 16):
         chunk = -(-N // c)
@@ -121,13 +102,12 @@ def fps_plain(pts: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
-def fps_cuda(pts: torch.Tensor, npoint: int,
-             plan: FpsPlan | None = None) -> torch.Tensor:
+def fps_cuda(pts: torch.Tensor, npoint: int) -> torch.Tensor:
     check_cuda(pts, "pts", torch.float32, ndim=3)
     B, N, C = pts.shape
     if C != 3 or not 1 <= npoint <= N:
         raise ValueError(f"fps: bad shape {tuple(pts.shape)} -> {npoint}")
-    plan = plan or fps_plan(B, N)
+    plan = fps_plan(B, N)
     bufs = prepare(pts, npoint, plan)
     launch(pts, npoint, plan, *bufs)
     return bufs[0]

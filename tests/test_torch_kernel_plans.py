@@ -10,6 +10,9 @@ held to on the card, must break exact ties between points that different
 blocks hold as the JAX oracle does.
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +20,9 @@ import jax.numpy as jnp
 
 from sam6d_tpu.ops.fps import furthest_point_sample as jfps
 from sam6d_tpu_torch.ops import fps
-from test_torch_kernels_cuda import _cross_block_ties
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "helpers"))
+from fps_clouds import cross_block_ties  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -78,15 +83,17 @@ def test_fps_plan_routes_by_size(B, N, route, cluster, threads):
                                                         threads)
 
 
-def test_fps_plan_takes_the_other_designs_on_request():
-    plan = fps.fps_plan(8, 2048, small="warp")
-    assert (plan.route, plan.threads, plan.per) == ("block", 32, 64)
-    plan = fps.fps_plan(8, 2048, small="block4")
-    assert (plan.route, plan.threads, plan.per) == ("block", 128, 16)
-    plan = fps.fps_plan(28, 10000, mid="cluster")
-    assert (plan.route, plan.cluster, plan.per) == ("cluster", 3, 4)
-    plan = fps.fps_plan(50, 10000, mid="cluster")  # 150 blocks: too many
-    assert (plan.route, plan.cluster, plan.per) == ("block", 1, 10)
+def test_fps_plan_names_an_instance_of_the_kernel():
+    # The geometries `fps_launch` (csrc/fps.cu) has an instance for: a
+    # block of 256 threads of 8 points, of 1024 threads of 4 to 18, a
+    # cluster of 1024-thread blocks of 8 to 18 (each holds more than 4096
+    # points), or the device-memory route of 1024 threads.
+    instances = {("block", 256, 8), ("global", 1024, 0)}
+    instances |= {("block", 1024, p) for p in fps.PERS}
+    instances |= {("cluster", 1024, p) for p in fps.PERS if p > 4}
+    for B, N in PATH_SHAPES + SWEEP:
+        plan = fps.fps_plan(B, N)
+        assert (plan.route, plan.threads, plan.per) in instances, (B, N)
 
 
 @pytest.mark.parametrize("kind", ["dup", "lattice"])
@@ -99,7 +106,7 @@ def test_fps_plain_breaks_cross_block_ties_as_the_oracle(kind):
     N = 20000
     plan = fps.fps_plan(1, N)
     assert plan.route == "cluster" and plan.cluster == 2
-    pts = _cross_block_ties(N, kind)
+    pts = cross_block_ties(N, kind)
     want = np.asarray(jfps(jnp.asarray(pts), 256, use_pallas=False))
     got = fps.fps_plain(torch.from_numpy(pts), 256).numpy()
     np.testing.assert_array_equal(got, want)

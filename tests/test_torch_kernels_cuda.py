@@ -9,6 +9,9 @@ Marked `cuda`: without a card every test skips.  On a machine with one:
 the JAX test configuration, for machines without JAX).
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +27,9 @@ from sam6d_tpu_torch.ops import fps as fps_mod
 from sam6d_tpu_torch.ops import geo_embed as ge
 from sam6d_tpu_torch.ops import scatter_rows as sr
 from sam6d_tpu_torch.params import init_random_
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "helpers"))
+from fps_clouds import cross_block_ties  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -58,38 +64,34 @@ def test_fps_kernel_matches_plain_at_near_ties(dev):
     assert torch.equal(got, fps_mod.fps_plain(pts, 40))
 
 
-def _cross_block_ties(N, kind, seed=0):
-    """(1, N, 3) clouds with exact ties between points that different
-    blocks of a cluster hold: "dup" repeats the first half's points (integer
-    coordinates) at j + N / 2; "lattice" is an integer lattice of at least
-    N points, cut to N, whose equal distances span the blocks' chunks."""
-    rng = np.random.RandomState(seed)
-    if kind == "dup":
-        half = rng.randint(0, 64, (N // 2, 3))
-        pts = np.concatenate([half, half])
-    else:
-        side = int(np.ceil(N ** (1 / 3)))
-        g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1)
-        pts = g.reshape(-1, 3)[:N]
-    return pts[None].astype(np.float32)
-
-
-@pytest.mark.parametrize("B,N,npoint,plan", [
-    (3, 2048, 196, fps_mod.fps_plan(3, 2048, small="warp")),
-    (3, 2048, 196, fps_mod.fps_plan(3, 2048, small="block4")),
-    (3, 2048, 196, fps_mod.fps_plan(3, 2048, small="block8")),
-    (2, 1000, 196, fps_mod.fps_plan(2, 1000)),
-    (2, 10000, 512, fps_mod.fps_plan(2, 10000, mid="block")),
-    (2, 10000, 512, fps_mod.fps_plan(2, 10000, mid="cluster")),
-    (1, 3000, 512, fps_mod.fps_plan(1, 3000)),
-    (2, 65536, 256, fps_mod.fps_plan(2, 65536)),
-    (1, 294912, 64, fps_mod.fps_plan(1, 294912)),
-    (1, 400000, 64, fps_mod.fps_plan(1, 400000)),
+# Each route and instance through a shape that `fps_plan` sends to it:
+# 256 threads of 8 points; one block of 1024 threads of 4 to 18 points;
+# clusters of 2, 4, 8 and 16 blocks of 8 to 18 points a thread; the
+# device-memory route.
+@pytest.mark.parametrize("B,N,npoint,route,cluster,per", [
+    (3, 2048, 196, "block", 1, 8),
+    (2, 1000, 196, "block", 1, 8),
+    (1, 3000, 512, "block", 1, 4),
+    (1, 8000, 256, "block", 1, 8),
+    (2, 10000, 512, "block", 1, 10),
+    (1, 13000, 256, "block", 1, 13),
+    (1, 16384, 256, "block", 1, 16),
+    (1, 18432, 256, "block", 1, 18),
+    (2, 20000, 256, "cluster", 2, 10),
+    (1, 25000, 256, "cluster", 2, 13),
+    (1, 30000, 256, "cluster", 4, 8),
+    (2, 65536, 256, "cluster", 8, 8),
+    (1, 250000, 64, "cluster", 16, 16),
+    (1, 294912, 64, "cluster", 16, 18),
+    (1, 400000, 64, "global", 1, 0),
 ])
-def test_fps_every_route_matches_plain(dev, B, N, npoint, plan):
+def test_fps_every_route_matches_plain(dev, B, N, npoint, route, cluster,
+                                       per):
+    plan = fps_mod.fps_plan(B, N)
+    assert (plan.route, plan.cluster, plan.per) == (route, cluster, per)
     g = torch.Generator(device=dev).manual_seed(N + B)
     pts = torch.rand(B, N, 3, generator=g, device=dev) * 0.2 - 0.1
-    got = fps_mod.fps_cuda(pts, npoint, plan)
+    got = fps_mod.fps_cuda(pts, npoint)
     torch.cuda.synchronize()
     assert torch.equal(got, fps_mod.fps_plain(pts, npoint))
 
@@ -110,7 +112,7 @@ def test_fps_cluster_breaks_cross_block_ties_to_the_lowest_index(dev, kind,
                                                                  N):
     plan = fps_mod.fps_plan(1, N)
     assert plan.route == "cluster"
-    pts = torch.from_numpy(_cross_block_ties(N, kind)).to(dev)
+    pts = torch.from_numpy(cross_block_ties(N, kind)).to(dev)
     got = fps_mod.fps_cuda(pts, 512)
     torch.cuda.synchronize()
     assert torch.equal(got, fps_mod.fps_plain(pts, 512))
