@@ -13,10 +13,11 @@ process per source, all at once), then:
    plain version in turns, medians) and, where one PyTorch call computes
    the same function, that call's time as a yardstick (K4/K5 also at
    ragged shapes, through the wrapper and as one bare launch, that
-   launch also timed alone in bursts; K1, K2, K3 and K6 also timed alone;
-   K1 through the route its plan picks at each shape; K2 at the training
-   shape also with the winners that K3 reads, both kernels fed the same
-   winners); plus the
+   launch also timed alone in bursts; K1, K2, K3, K6 and K7 also timed
+   alone; K1 through the route its plan picks at each shape; K2 at the
+   training shape also with the winners that K3 reads, both kernels fed
+   the same winners; K7 on uniform, ball-query and one-target indices, its
+   bits held to the CPU's); plus the
    tiny-config PEM template bank, a tiny-config ISM frame (float32) and
    bfloat16 SAM-encoder and DINOv2 blocks at the full model's head dims
    on the card against the same computed on the CPU;
@@ -41,12 +42,19 @@ process per source, all at once), then:
    2 warm-up and 3 timed steps (CUDA events), the peak memory, the
    metrics of each step; counters zeroed before and read after, K1, K2,
    K3 (the embedding backward) and K7 (the row scatter-add) required.
-   One more step runs under torch.profiler.
+   One more step runs under torch.profiler, which also reports K7's
+   device time and the torch.gather ops by their shapes.
 
 Any failure exits non-zero.  The last lines are the nvidia-smi name and
 power limit, {"kernels": [...]}, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Details also go to chiprun_out/chip_smoke.json.
+
+    python3 chip_smoke.py --parent build/parent
+
+also builds K7 from the checkout in build/parent (for example `git
+archive` of the parent commit) and times it alone beside this tree's, on
+the same inputs, in turns (`parent_kernel_ms`).
 """
 
 from __future__ import annotations
@@ -957,37 +965,127 @@ def check_geo_embed_bwd(dev):
     return rows
 
 
+def load_helper(name: str):
+    """A module of tests/helpers/, loaded by its path (that directory is no
+    package)."""
+    import importlib.util
+
+    path = ROOT / "tests" / "helpers" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# `--parent DIR`: an earlier checkout (a `git archive` of the parent commit,
+# unpacked under build/).  Its K7 (float2 atomics into a zeroed output) is
+# built from its own source beside this tree's and timed alone on the same
+# inputs, in turns with this tree's kernel (`parent_kernel_ms`).
+PARENT = {}
+
+
+def load_parent(root: Path):
+    import ctypes
+
+    from sam6d_tpu_torch.ops import _kernels
+
+    V, I = ctypes.c_void_p, ctypes.c_int
+    k = _kernels.Kernel("scatter_rows (parent)", "scatter_rows.cu", "",
+                        {"scatter_rows": [V, V, V, ctypes.c_longlong, I, I,
+                                          I, I, V]})
+    k.source = root / "sam6d_tpu_torch" / "csrc" / "scatter_rows.cu"
+    k.lib()
+    PARENT.update(scatter=k, root=str(root))
+
+
+def parent_scatter_launch(idx, dy, out):
+    """The parent's K7 adding dy into `out` (zeroed by the caller)."""
+    import torch
+
+    from sam6d_tpu_torch.ops._kernels import current_stream, ptr
+
+    B, Q = idx.shape
+    PARENT["scatter"].call(
+        "scatter_rows", ptr(idx), ptr(dy), ptr(out), B * Q, Q, out.shape[1],
+        dy.shape[-1], int(dy.dtype == torch.bfloat16),
+        current_stream(dy.device))
+
+
 def check_scatter_rows(dev):
-    """K7 against its plain version at the fine-stage positional
-    encoding's two scales, (28, 2048 * 64) and (28, 2048 * 32) rows of 32
-    bf16 channels into (28, 2048, 32) float32, 1% of the indices negative
-    (dropped).  Yardstick: one `index_add_` of the same rows (float32
-    source and flat indices, built beforehand and not timed).  The spread
-    between two launches on the same inputs is the run-to-run effect of
-    the atomics' order."""
+    """K7 at the fine-stage positional encoding's shapes, (28, 2048 * S) rows
+    of 32 bf16 channels into (28, 2048, 32) float32, on five kinds of
+    indices: uniform at S = 64 and 32 (1% negative, dropped); the encoding's
+    own ball-query indices at (r = 0.1, S = 32) and (r = 0.2, S = 64), built
+    by the port's pairwise_distance + ball_query_from_d2 on 28
+    radius-normalised clouds of 2048 points; every row to one target.
+    Required: two launches give the same bits; the result equals
+    scatter_rows_plain on CPU copies bit for bit; offsets and perm equal
+    inverse_index_plain's.  Times: the wrapper (`ms`), alone (`kernel_ms`:
+    20 bare launches between two events, /20), the plain version on the
+    card, `index_add_` of the same rows (float32 source and flat indices,
+    built beforehand, not timed) and, with --parent, the parent's atomics
+    kernel alone; the device time of each of K7's five kernels
+    (`kernels_ms`, torch.profiler).  Bounds: the function's bytes, and this
+    design's own traffic (`design_floor_ms`)."""
     import torch
 
     from sam6d_tpu_torch.ops import scatter_rows as sr
 
+    bq = load_helper("ball_query_clouds")
     B, N, C = 28, 2048, 32
+    pts = torch.from_numpy(bq.synthetic_clouds(B, N)).to(dev)
     rows = []
-    for S, reps in ((64, 10), (32, 10)):
+    for kind, S, reps in (("uniform", 64, 10), ("uniform", 32, 10),
+                          ("ball_query", 32, 10), ("ball_query", 64, 10),
+                          ("one_target", 64, 4)):
         Q = N * S
         g = torch.Generator(device=dev).manual_seed(S)
-        idx = torch.randint(0, N, (B, Q), generator=g, device=dev)
-        idx[torch.rand(B, Q, generator=g, device=dev) < 0.01] = -1
+        if kind == "uniform":
+            idx = torch.randint(0, N, (B, Q), generator=g, device=dev)
+            idx[torch.rand(B, Q, generator=g, device=dev) < 0.01] = -1
+        elif kind == "ball_query":
+            idx = bq.ball_query_rows(pts, 0.1 if S == 32 else 0.2, S)
+        else:
+            idx = torch.full((B, Q), N // 3, dtype=torch.long, device=dev)
+        idx = idx.contiguous()
         dy = torch.randn(B, Q, C, generator=g, device=dev).bfloat16()
+        h = bq.hits(idx, N).float().flatten()
+        name = f"{kind} S={S}"
         got = sr.scatter_rows_cuda(idx, dy, N)
         again = sr.scatter_rows_cuda(idx, dy, N)
-        want = sr.scatter_rows_plain(idx, dy, N)
+        plan = sr.scatter_plan(B, Q, N, C, 2, dy.data_ptr() % 16)
+        bufs = sr.prepare(idx, N, C, plan)
+        bare = lambda: sr.launch(idx, dy, N, plan, *bufs)  # noqa: E731
+        bare()
+        offsets, perm = sr.inverse_index_cuda(idx, N)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        spread = float((got - again).abs().max())
-        # float32 sums of about S unit-size terms per row, in the order the
-        # atomics land: within 1e-4 of any other order.
-        require(err <= 1e-4 and spread <= 1e-4,
-                f"scatter_rows S={S}: max abs err {err}, spread {spread}")
-        del got, again, want
+        require(torch.equal(got, again) and torch.equal(bufs[0], got),
+                f"scatter_rows {name}: two launches differ")
+        idx_c, dy_c = idx.cpu(), dy.cpu()
+        want = sr.scatter_rows_plain(idx_c, dy_c, N)
+        err = float((got.cpu() - want).abs().max())
+        require(torch.equal(got.cpu(), want),
+                f"scatter_rows {name}: not the CPU's bits (max abs {err})")
+        w_off, w_perm = sr.inverse_index_plain(idx_c, N)
+        require(torch.equal(offsets.cpu(), w_off)
+                and torch.equal(perm.cpu(), w_perm),
+                f"scatter_rows {name}: offsets / perm differ from the plain")
+        n_kept = int(w_off[:, -1].sum())
+        del got, again, want, offsets, perm, w_off, w_perm, idx_c, dy_c
+        fns = {"kernel": bare}
+        extra = {}
+        if PARENT:
+            p_out = torch.zeros(B, N, C, device=dev)
+            parent_scatter_launch(idx, dy, p_out)
+            torch.cuda.synchronize()
+            p_err = float((p_out - bufs[0]).abs().max())
+            p_rel = rel_err(p_out, bufs[0])
+            # float32 sums in the order the parent's atomics land: up to
+            # 131,072 terms a target here, so relative to the sums' size.
+            require(p_rel <= 1e-5, f"scatter_rows {name}: the parent's "
+                                   f"result differs by {p_rel} (relative)")
+            fns["parent"] = lambda: parent_scatter_launch(idx, dy, p_out)
+            extra.update(parent_max_abs_err=p_err, parent_rel_err=p_rel)
         offs = torch.arange(B, device=dev)[:, None] * N
         flat = torch.where(idx >= 0, idx + offs, B * N).reshape(-1)
         dyf = dy.reshape(-1, C).float()
@@ -997,15 +1095,31 @@ def check_scatter_rows(dev):
             "library": lambda: torch.zeros(B * N + 1, C, device=dev)
             .index_add_(0, flat, dyf),
         }, reps)
+        tb = time_in_turns(fns, reps, burst=20)
+        if PARENT:
+            extra["parent_kernel_ms"] = tb["parent"]
+        extra["kernels_ms"] = k7_kernel_ms(bare)
+        # The function: idx and dy read once, out written once.  This
+        # design: idx read twice, perm written and read (kept rows), dy of
+        # the kept rows, out, and the tile counts written, read and
+        # rewritten by the scan, read by the placement, offsets twice.
         nbytes = B * Q * (C * 2 + 8) + B * N * C * 4
         b_ms, b_by = bound(nbytes, B * Q * C, "float32")
-        rows.append(dict(shape=f"({B},{Q},{C}) bf16 -> ({B},{N},{C}) f32",
-                         max_abs_err=err, spread_between_launches=spread,
-                         ms=t["kernel"], plain_ms=t["plain"],
-                         library_ms=t["library"], bound_ms=b_ms,
-                         bound_by=b_by))
+        design = (2 * B * Q * 8 + n_kept * (8 + C * 2) + B * N * C * 4
+                  + 4 * B * plan.tiles * N * 4 + 2 * B * (N + 1) * 4)
+        rows.append(dict(
+            shape=f"({B},{Q},{C}) bf16 -> ({B},{N},{C}) f32, {name}",
+            max_abs_err=err, spread_between_launches=0.0,
+            hits_max=float(h.max()), hits_p99=float(torch.quantile(h, 0.99)),
+            hits_mean=float(h.mean()), kept_rows=n_kept,
+            ms=t["kernel"], kernel_ms=tb["kernel"], plain_ms=t["plain"],
+            library_ms=t["library"], bound_ms=b_ms, bound_by=b_by,
+            design_floor_ms=bound(design, 0, "float32")[0],
+            launches_a_call=5, **extra))
         log(f"scatter_rows {rows[-1]}")
-        del idx, dy, flat, dyf
+        del idx, dy, flat, dyf, bufs
+        if PARENT:
+            del p_out
     return rows
 
 
@@ -1237,18 +1351,19 @@ def phase_ism(dev):
         frames=results, launches=launches)
 
 
-def profile_once(fn, what: str, warm: int = 1):
+def profile_once(fn, what: str, warm: int = 1, ops_by_shape=()):
     """torch.profiler over one call of fn after `warm` calls: the
     device-busy share of its wall time and the kernels that take the most
-    device time."""
+    device time; with `ops_by_shape`, those PyTorch ops' calls and device
+    time grouped by their input shapes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=bool(ops_by_shape)) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1270,8 +1385,57 @@ def profile_once(fn, what: str, warm: int = 1):
         log(f"  {r['device_ms']:8.3f} ms  {r['calls']:5d}x  {r['name']}")
     flash = flash_device_time(rows)
     log(f"  K4 / K5 device time: {flash}")
+    # K7's four kernels, and PyTorch's kernel behind torch.gather and its
+    # backward (not a port of any TPU kernel).
+    named = {label: device_time(rows, part) for label, part in (
+        ("scatter_rows (K7)", "scatter_rows_"),
+        *K7_PARTS,
+        ("torch.gather", "_scatter_gather_elementwise_kernel"))}
+    log(f"  by name: {named}")
+    by_shape = []
+    for e in (prof.key_averages(group_by_input_shape=True)
+              if ops_by_shape else ()):
+        if e.key in ops_by_shape:
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            by_shape.append(dict(op=e.key, shapes=str(e.input_shapes)[:300],
+                                 calls=e.count, device_ms=us / 1e3))
+    for r in by_shape:
+        log(f"  {r['device_ms']:8.3f} ms  {r['calls']:3d}x  {r['op']} "
+            f"{r['shapes']}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                device_events=n_device, top=top, flash=flash)
+                device_events=n_device, top=top, flash=flash, named=named,
+                ops_by_shape=by_shape)
+
+
+# K7's five kernels, by a part of their names.
+K7_PARTS = tuple((f"K7 {k}", f"scatter_rows_{k}_kernel")
+                 for k in ("count", "scan", "place", "sum", "hot"))
+
+
+def k7_kernel_ms(fn, calls: int = 5):
+    """Device ms of each of K7's kernels a call of fn, by torch.profiler
+    over `calls` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()]
+    return {label: device_time(rows, part)["device_ms"] / calls
+            for label, part in K7_PARTS}
+
+
+def device_time(rows, part: str):
+    """Device ms and launches of the profiler rows (name, device us, calls)
+    whose kernel name holds `part`."""
+    hit = [(us, n) for key, us, n in rows if part in key]
+    return dict(device_ms=sum(us for us, _ in hit) / 1e3,
+                launches=sum(n for _, n in hit))
 
 
 def flash_device_time(rows):
@@ -1391,7 +1555,9 @@ def phase_train(dev):
     ds = solver.dataloader.dataset
     batch = collate([ds[i] for i in range(solver.cfg.batch_size)])
     profile = profile_once(
-        lambda: ts.train_step(state, batch, solver.generator), "train step")
+        lambda: ts.train_step(state, batch, solver.generator), "train step",
+        ops_by_shape=("aten::gather", "aten::scatter_add_",
+                      "aten::scatter_add", "aten::gather_backward"))
     return dict(steps=steps, warmup=warm, step_ms=ms,
                 samples_per_s=1e3 * solver.cfg.batch_size / ms,
                 peak_bytes=peak, winners_bytes=winners_bytes,
@@ -1422,6 +1588,9 @@ def main():
     torch.cuda.set_device(dev)
     log("== phase 1: environment and build")
     smi, name, build_s, ptxas = phase_environment()
+    if "--parent" in sys.argv:
+        load_parent(Path(sys.argv[sys.argv.index("--parent") + 1]).resolve())
+        log(f"parent K7 built from {PARENT['root']}")
     log("== phase 2: kernels against their plain versions")
     fps_rows = check_fps(dev)
     geo_rows = check_geo_embed(dev)
@@ -1466,8 +1635,9 @@ def main():
     # of one instance (PEM request); a windowed SAM block (28 of the 32
     # K4 launches of a frame); DINOv2-L at a bucket of 256 proposals; the
     # AMG tail over all 1024 prompts, the plain version there in 16 calls
-    # of 64 prompts; the embedding backward and the S = 64 scatter at the
-    # training shapes.  K1 and K2 count the serving path's launches (their
+    # of 64 prompts; the embedding backward at the training shape; the
+    # scatter on the training step's own ball-query indices at S = 64 (its
+    # device time in the profiled step beside it).  K1 and K2 count the serving path's launches (their
     # slice) and carry the training path's as launches_train.
     report = {"kernels": [
         dict(entry(fps.KERNEL, fps_rows, 0, sl["launches"],
@@ -1488,9 +1658,10 @@ def main():
                         "call materializes several GB at P=1024)"),
         entry(geo_embed.KERNEL_BWD, bwd_rows, 0, train["launches"],
               "none: no single PyTorch call computes these gradients"),
-        entry(scatter_rows.KERNEL, scatter_rows_, 0, train["launches"],
-              "Tensor.index_add_ of float32 rows at flat indices, both "
-              "built beforehand, not timed"),
+        dict(entry(scatter_rows.KERNEL, scatter_rows_, 3, train["launches"],
+                   "Tensor.index_add_ of float32 rows at flat indices, both "
+                   "built beforehand, not timed"),
+             device_in_step=train["profile"]["named"]["scatter_rows (K7)"]),
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -29,6 +29,7 @@ from sam6d_tpu_torch.ops import scatter_rows as sr
 from sam6d_tpu_torch.params import init_random_
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "helpers"))
+from ball_query_clouds import ball_query_rows, synthetic_clouds  # noqa: E402
 from fps_clouds import cross_block_ties  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -449,23 +450,72 @@ def test_geo_embed_bwd_kernel_matches_plain(dev, ties, dtype, B, N, d):
 
 
 def test_scatter_rows_kernel_matches_plain(dev):
-    # float32 sums of ~64 unit-size terms per row in the order the atomics
-    # land: 1e-4 from any other order, and between two launches.
+    # Each target's rows summed in ascending q from 0.0f: the same bits in
+    # every launch, and the bits of the CPU's sequential index_add_.
     B, N, S, C = 4, 2048, 64, 32
     g = torch.Generator(device=dev).manual_seed(0)
     idx = torch.randint(0, N, (B, N * S), generator=g, device=dev)
     idx[torch.rand(B, N * S, generator=g, device=dev) < 0.05] = -1
     dy = torch.randn(B, N * S, C, generator=g, device=dev).bfloat16()
+    for d in (dy, dy.float()):
+        got = sr.scatter_rows_cuda(idx, d, N)
+        again = sr.scatter_rows_cuda(idx, d, N)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert torch.equal(got.cpu(),
+                           sr.scatter_rows_plain(idx.cpu(), d.cpu(), N))
+
+
+def _scatter_case(dev, case, B=4, N=2048):
+    """(idx on the card, N): the positional encoding's ball-query indices
+    at both scales, every row to one target, every row dropped."""
+    if case.startswith("ball_query"):
+        S = int(case[-2:])
+        pts = torch.from_numpy(synthetic_clouds(B, N, seed=S)).to(dev)
+        return ball_query_rows(pts, 0.1 if S == 32 else 0.2, S), N
+    idx = torch.full((B, N * 8), 5, dtype=torch.long, device=dev)
+    if case == "all_dropped":
+        idx[:, ::2] = -1
+        idx[:, 1::2] = N
+    return idx, N
+
+
+SCATTER_CASES = ["ball_query_32", "ball_query_64", "one_target",
+                 "all_dropped"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_scatter_rows_kernel_on_skewed_indices(dev, case, dtype):
+    idx, N = _scatter_case(dev, case)
+    g = torch.Generator(device=dev).manual_seed(1)
+    dy = torch.randn(*idx.shape, 32, generator=g, device=dev).to(dtype)
     got = sr.scatter_rows_cuda(idx, dy, N)
     again = sr.scatter_rows_cuda(idx, dy, N)
-    want = sr.scatter_rows_plain(idx, dy, N)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
-    torch.testing.assert_close(got, again, atol=1e-4, rtol=0)
-    dy32 = dy.float()
-    torch.testing.assert_close(sr.scatter_rows_cuda(idx, dy32, N),
-                               sr.scatter_rows_plain(idx, dy32, N),
-                               atol=1e-4, rtol=0)
+    assert torch.equal(got, again)
+    cpu_idx = idx.cpu()
+    want = sr.scatter_rows_plain(cpu_idx.where(cpu_idx < N, -1), dy.cpu(), N)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES + ["uniform", "ragged"])
+def test_scatter_rows_inverse_index_matches_plain(dev, case):
+    if case == "uniform":
+        g = torch.Generator(device=dev).manual_seed(2)
+        idx = torch.randint(-3, 2051, (3, 2048 * 32), generator=g, device=dev)
+        N = 2048
+    elif case == "ragged":  # Q and N off every tile and warp multiple
+        g = torch.Generator(device=dev).manual_seed(3)
+        idx = torch.randint(-1, 38, (5, 9001), generator=g, device=dev)
+        N = 37
+    else:
+        idx, N = _scatter_case(dev, case)
+    offsets, perm = sr.inverse_index_cuda(idx, N)
+    torch.cuda.synchronize()
+    want_off, want_perm = sr.inverse_index_plain(idx.cpu(), N)
+    assert torch.equal(offsets.cpu(), want_off)
+    assert torch.equal(perm.cpu(), want_perm)
 
 
 def test_training_wrappers_refuse_what_the_kernels_do_not_take(dev):
