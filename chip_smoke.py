@@ -16,8 +16,8 @@ process per source, all at once), then:
    launch also timed alone in bursts; K1, K2, K3, K6 and K7 also timed
    alone; K1 through the route its plan picks at each shape; K2 at the
    training shape also with the winners that K3 reads, both kernels fed
-   the same winners; K7 on uniform, ball-query and one-target indices, its
-   bits held to the CPU's); plus the
+   the same winners; K7 on uniform, ball-query (also on a dense patch)
+   and one-target indices, its bits held to the CPU's); plus the
    tiny-config PEM template bank, a tiny-config ISM frame (float32) and
    bfloat16 SAM-encoder and DINOv2 blocks at the full model's head dims
    on the card against the same computed on the CPU;
@@ -43,18 +43,12 @@ process per source, all at once), then:
    metrics of each step; counters zeroed before and read after, K1, K2,
    K3 (the embedding backward) and K7 (the row scatter-add) required.
    One more step runs under torch.profiler, which also reports K7's
-   device time and the torch.gather ops by their shapes.
+   device time.
 
 Any failure exits non-zero.  The last lines are the nvidia-smi name and
 power limit, {"kernels": [...]}, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Details also go to chiprun_out/chip_smoke.json.
-
-    python3 chip_smoke.py --parent build/parent
-
-also builds K7 from the checkout in build/parent (for example `git
-archive` of the parent commit) and times it alone beside this tree's, on
-the same inputs, in turns (`parent_kernel_ms`).
 """
 
 from __future__ import annotations
@@ -977,56 +971,25 @@ def load_helper(name: str):
     return mod
 
 
-# `--parent DIR`: an earlier checkout (a `git archive` of the parent commit,
-# unpacked under build/).  Its K7 (float2 atomics into a zeroed output) is
-# built from its own source beside this tree's and timed alone on the same
-# inputs, in turns with this tree's kernel (`parent_kernel_ms`).
-PARENT = {}
-
-
-def load_parent(root: Path):
-    import ctypes
-
-    from sam6d_tpu_torch.ops import _kernels
-
-    V, I = ctypes.c_void_p, ctypes.c_int
-    k = _kernels.Kernel("scatter_rows (parent)", "scatter_rows.cu", "",
-                        {"scatter_rows": [V, V, V, ctypes.c_longlong, I, I,
-                                          I, I, V]})
-    k.source = root / "sam6d_tpu_torch" / "csrc" / "scatter_rows.cu"
-    k.lib()
-    PARENT.update(scatter=k, root=str(root))
-
-
-def parent_scatter_launch(idx, dy, out):
-    """The parent's K7 adding dy into `out` (zeroed by the caller)."""
-    import torch
-
-    from sam6d_tpu_torch.ops._kernels import current_stream, ptr
-
-    B, Q = idx.shape
-    PARENT["scatter"].call(
-        "scatter_rows", ptr(idx), ptr(dy), ptr(out), B * Q, Q, out.shape[1],
-        dy.shape[-1], int(dy.dtype == torch.bfloat16),
-        current_stream(dy.device))
-
-
 def check_scatter_rows(dev):
     """K7 at the fine-stage positional encoding's shapes, (28, 2048 * S) rows
-    of 32 bf16 channels into (28, 2048, 32) float32, on five kinds of
+    of 32 bf16 channels into (28, 2048, 32) float32, on six kinds of
     indices: uniform at S = 64 and 32 (1% negative, dropped); the encoding's
     own ball-query indices at (r = 0.1, S = 32) and (r = 0.2, S = 64), built
     by the port's pairwise_distance + ball_query_from_d2 on 28
-    radius-normalised clouds of 2048 points; every row to one target.
-    Required: two launches give the same bits; the result equals
+    radius-normalised clouds of 2048 points; the same at S = 64 on those
+    clouds shrunk to a patch inside the radius (every point a neighbour of
+    every other: the encoding's most skewed indices, 64 targets of 2048
+    rows); every row to one target.  Required: two launches give the same
+    bits (`spread_between_launches` 0); the result equals
     scatter_rows_plain on CPU copies bit for bit; offsets and perm equal
     inverse_index_plain's.  Times: the wrapper (`ms`), alone (`kernel_ms`:
     20 bare launches between two events, /20), the plain version on the
     card, `index_add_` of the same rows (float32 source and flat indices,
-    built beforehand, not timed) and, with --parent, the parent's atomics
-    kernel alone; the device time of each of K7's five kernels
-    (`kernels_ms`, torch.profiler).  Bounds: the function's bytes, and this
-    design's own traffic (`design_floor_ms`)."""
+    built beforehand, not timed); the device time of each of K7's kernels
+    and the kernel launches a call (`kernels_ms`, `launches_a_call`,
+    torch.profiler).  Bounds: the function's bytes, and this design's own
+    traffic (`design_floor_ms`)."""
     import torch
 
     from sam6d_tpu_torch.ops import scatter_rows as sr
@@ -1037,7 +1000,7 @@ def check_scatter_rows(dev):
     rows = []
     for kind, S, reps in (("uniform", 64, 10), ("uniform", 32, 10),
                           ("ball_query", 32, 10), ("ball_query", 64, 10),
-                          ("one_target", 64, 4)):
+                          ("dense_patch", 64, 10), ("one_target", 64, 4)):
         Q = N * S
         g = torch.Generator(device=dev).manual_seed(S)
         if kind == "uniform":
@@ -1045,6 +1008,8 @@ def check_scatter_rows(dev):
             idx[torch.rand(B, Q, generator=g, device=dev) < 0.01] = -1
         elif kind == "ball_query":
             idx = bq.ball_query_rows(pts, 0.1 if S == 32 else 0.2, S)
+        elif kind == "dense_patch":  # within 0.18 of each other, r = 0.2
+            idx = bq.ball_query_rows(pts * 0.09, 0.2, S)
         else:
             idx = torch.full((B, Q), N // 3, dtype=torch.long, device=dev)
         idx = idx.contiguous()
@@ -1059,8 +1024,11 @@ def check_scatter_rows(dev):
         bare()
         offsets, perm = sr.inverse_index_cuda(idx, N)
         torch.cuda.synchronize()
-        require(torch.equal(got, again) and torch.equal(bufs[0], got),
-                f"scatter_rows {name}: two launches differ")
+        spread = max(float((got - again).abs().max()),
+                     float((bufs[0] - got).abs().max()))
+        require(spread == 0.0 and torch.equal(got, again)
+                and torch.equal(bufs[0], got),
+                f"scatter_rows {name}: two launches differ by {spread}")
         idx_c, dy_c = idx.cpu(), dy.cpu()
         want = sr.scatter_rows_plain(idx_c, dy_c, N)
         err = float((got.cpu() - want).abs().max())
@@ -1072,20 +1040,6 @@ def check_scatter_rows(dev):
                 f"scatter_rows {name}: offsets / perm differ from the plain")
         n_kept = int(w_off[:, -1].sum())
         del got, again, want, offsets, perm, w_off, w_perm, idx_c, dy_c
-        fns = {"kernel": bare}
-        extra = {}
-        if PARENT:
-            p_out = torch.zeros(B, N, C, device=dev)
-            parent_scatter_launch(idx, dy, p_out)
-            torch.cuda.synchronize()
-            p_err = float((p_out - bufs[0]).abs().max())
-            p_rel = rel_err(p_out, bufs[0])
-            # float32 sums in the order the parent's atomics land: up to
-            # 131,072 terms a target here, so relative to the sums' size.
-            require(p_rel <= 1e-5, f"scatter_rows {name}: the parent's "
-                                   f"result differs by {p_rel} (relative)")
-            fns["parent"] = lambda: parent_scatter_launch(idx, dy, p_out)
-            extra.update(parent_max_abs_err=p_err, parent_rel_err=p_rel)
         offs = torch.arange(B, device=dev)[:, None] * N
         flat = torch.where(idx >= 0, idx + offs, B * N).reshape(-1)
         dyf = dy.reshape(-1, C).float()
@@ -1095,10 +1049,8 @@ def check_scatter_rows(dev):
             "library": lambda: torch.zeros(B * N + 1, C, device=dev)
             .index_add_(0, flat, dyf),
         }, reps)
-        tb = time_in_turns(fns, reps, burst=20)
-        if PARENT:
-            extra["parent_kernel_ms"] = tb["parent"]
-        extra["kernels_ms"] = k7_kernel_ms(bare)
+        tb = time_in_turns({"kernel": bare}, reps, burst=20)
+        kernels_ms, launches_a_call = k7_kernel_ms(bare)
         # The function: idx and dy read once, out written once.  This
         # design: idx read twice, perm written and read (kept rows), dy of
         # the kept rows, out, and the tile counts written, read and
@@ -1109,17 +1061,15 @@ def check_scatter_rows(dev):
                   + 4 * B * plan.tiles * N * 4 + 2 * B * (N + 1) * 4)
         rows.append(dict(
             shape=f"({B},{Q},{C}) bf16 -> ({B},{N},{C}) f32, {name}",
-            max_abs_err=err, spread_between_launches=0.0,
+            max_abs_err=err, spread_between_launches=spread,
             hits_max=float(h.max()), hits_p99=float(torch.quantile(h, 0.99)),
             hits_mean=float(h.mean()), kept_rows=n_kept,
             ms=t["kernel"], kernel_ms=tb["kernel"], plain_ms=t["plain"],
             library_ms=t["library"], bound_ms=b_ms, bound_by=b_by,
             design_floor_ms=bound(design, 0, "float32")[0],
-            launches_a_call=5, **extra))
+            kernels_ms=kernels_ms, launches_a_call=launches_a_call))
         log(f"scatter_rows {rows[-1]}")
         del idx, dy, flat, dyf, bufs
-        if PARENT:
-            del p_out
     return rows
 
 
@@ -1351,19 +1301,18 @@ def phase_ism(dev):
         frames=results, launches=launches)
 
 
-def profile_once(fn, what: str, warm: int = 1, ops_by_shape=()):
+def profile_once(fn, what: str, warm: int = 1):
     """torch.profiler over one call of fn after `warm` calls: the
     device-busy share of its wall time and the kernels that take the most
-    device time; with `ops_by_shape`, those PyTorch ops' calls and device
-    time grouped by their input shapes."""
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=bool(ops_by_shape)) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1385,38 +1334,25 @@ def profile_once(fn, what: str, warm: int = 1, ops_by_shape=()):
         log(f"  {r['device_ms']:8.3f} ms  {r['calls']:5d}x  {r['name']}")
     flash = flash_device_time(rows)
     log(f"  K4 / K5 device time: {flash}")
-    # K7's four kernels, and PyTorch's kernel behind torch.gather and its
+    # K7's kernels, and PyTorch's kernel behind torch.gather and its
     # backward (not a port of any TPU kernel).
     named = {label: device_time(rows, part) for label, part in (
         ("scatter_rows (K7)", "scatter_rows_"),
         *K7_PARTS,
         ("torch.gather", "_scatter_gather_elementwise_kernel"))}
     log(f"  by name: {named}")
-    by_shape = []
-    for e in (prof.key_averages(group_by_input_shape=True)
-              if ops_by_shape else ()):
-        if e.key in ops_by_shape:
-            us = getattr(e, "device_time_total", None)
-            if us is None:
-                us = e.cuda_time_total
-            by_shape.append(dict(op=e.key, shapes=str(e.input_shapes)[:300],
-                                 calls=e.count, device_ms=us / 1e3))
-    for r in by_shape:
-        log(f"  {r['device_ms']:8.3f} ms  {r['calls']:3d}x  {r['op']} "
-            f"{r['shapes']}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                device_events=n_device, top=top, flash=flash, named=named,
-                ops_by_shape=by_shape)
+                device_events=n_device, top=top, flash=flash, named=named)
 
 
-# K7's five kernels, by a part of their names.
+# K7's four kernels, by a part of their names.
 K7_PARTS = tuple((f"K7 {k}", f"scatter_rows_{k}_kernel")
-                 for k in ("count", "scan", "place", "sum", "hot"))
+                 for k in ("count", "scan", "place", "sum"))
 
 
 def k7_kernel_ms(fn, calls: int = 5):
-    """Device ms of each of K7's kernels a call of fn, by torch.profiler
-    over `calls` calls."""
+    """Device ms of each of K7's kernels a call of fn, and K7's kernel
+    launches a call, by torch.profiler over `calls` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1426,8 +1362,9 @@ def k7_kernel_ms(fn, calls: int = 5):
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()]
-    return {label: device_time(rows, part)["device_ms"] / calls
-            for label, part in K7_PARTS}
+    return ({label: device_time(rows, part)["device_ms"] / calls
+             for label, part in K7_PARTS},
+            device_time(rows, "scatter_rows_")["launches"] / calls)
 
 
 def device_time(rows, part: str):
@@ -1555,9 +1492,7 @@ def phase_train(dev):
     ds = solver.dataloader.dataset
     batch = collate([ds[i] for i in range(solver.cfg.batch_size)])
     profile = profile_once(
-        lambda: ts.train_step(state, batch, solver.generator), "train step",
-        ops_by_shape=("aten::gather", "aten::scatter_add_",
-                      "aten::scatter_add", "aten::gather_backward"))
+        lambda: ts.train_step(state, batch, solver.generator), "train step")
     return dict(steps=steps, warmup=warm, step_ms=ms,
                 samples_per_s=1e3 * solver.cfg.batch_size / ms,
                 peak_bytes=peak, winners_bytes=winners_bytes,
@@ -1588,9 +1523,6 @@ def main():
     torch.cuda.set_device(dev)
     log("== phase 1: environment and build")
     smi, name, build_s, ptxas = phase_environment()
-    if "--parent" in sys.argv:
-        load_parent(Path(sys.argv[sys.argv.index("--parent") + 1]).resolve())
-        log(f"parent K7 built from {PARENT['root']}")
     log("== phase 2: kernels against their plain versions")
     fps_rows = check_fps(dev)
     geo_rows = check_geo_embed(dev)

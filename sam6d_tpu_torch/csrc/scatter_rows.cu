@@ -17,7 +17,7 @@
 // output row is written exactly once (a target without rows as zeros), so
 // the output needs no memset.
 //
-// Five launches a call, on the caller's stream, with no host
+// Four launches a call, on the caller's stream, with no host
 // synchronisation (every size follows from B, Q, N, C and the plan):
 //   1. scatter_rows_count_kernel, one block a (tile of `tile` rows, b): a
 //      histogram of the tile's kept rows in shared memory (N counters,
@@ -25,11 +25,9 @@
 //   2. scatter_rows_scan_kernel, one block a b: offsets (B, N + 1) int32,
 //      the exclusive scan over n of the targets' totals; in place of each
 //      tile's count, its base (the target's offset plus the counts of the
-//      earlier tiles); the list of targets with more than `hot` rows
-//      (hot_list (B, N), hot_count (B)); zeros for the targets without
-//      rows; next_run (B, N + 1), the first target at or after n with rows
-//      and not hot; and unit_first (B, units + 1), where the sum kernel's
-//      units of unit_rows positions of perm begin.
+//      earlier tiles); zeros for the targets without rows; and unit_first
+//      (B, units + 1), where the sum kernel's units of unit_rows positions
+//      of perm begin.
 //   3. scatter_rows_place_kernel, one block a (tile, b): the tile's keys in
 //      shared memory; each warp counts its contiguous segment into a row of
 //      16-bit counters (shared atomics), the counters are scanned over
@@ -43,16 +41,11 @@
 //      counting sort, with no comparison and no library sort.
 //   4. scatter_rows_sum_kernel<T, VEC>, one warp a unit (the targets of one
 //      b whose rows start in a window of unit_rows positions of perm): the
-//      warp streams the rows of each run of consecutive targets that are
-//      not hot in rounds of 32 x 4 vectors of VEC bytes (32 rows of 32 bf16
-//      channels), copied asynchronously (cp.async) into a ring of three
-//      rounds in shared memory, two in flight while one is added; lane c
-//      adds channel c (and c + 32, ...) of each row in order and writes a
-//      target's row where its rows end.
-//   5. scatter_rows_hot_kernel<T, VEC>, one block an SM: each target with
-//      more than `hot` rows is summed by one block, warps 1-7 staging a
-//      round of 64 rows each, warp 0 adding them in order while the next
-//      rounds load.
+//      warp streams the unit's rows in rounds of 32 x 4 vectors of VEC
+//      bytes (32 rows of 32 bf16 channels), copied asynchronously
+//      (cp.async) into a ring of three rounds in shared memory, two in
+//      flight while one is added; lane c adds channel c (and c + 32, ...)
+//      of each row in order and writes a target's row where its rows end.
 //
 // What bounds it: bytes.  At the fine-stage positional encoding's larger
 // scale (B = 28, N = 2048, Q = 2048 * 64, C = 32, bf16) the function reads
@@ -60,15 +53,19 @@
 // This design moves more: idx read twice (58.7 MB), perm written and read
 // (29.4 MB), dy (234.9 MB), out (7.3 MB) and the tile counts (4 passes of
 // 3.7 MB, mostly in L2): about 345 MB, 0.103 ms.  dy is read in perm
-// order, 64-byte rows at scattered addresses.  Skew: the ball query takes
-// the first S in-radius points in scan order, so the lowest-index points of
-// every neighbourhood are hit by nearly every neighbour (over 1200 rows a
-// target at S = 64); such a target is one stretch of a warp's stream.  Past
-// `hot` rows a target's time is its chain of float32 adds (one add a row
-// and channel, in order), which the hot kernel feeds from seven loader
-// warps: one target of 131,072 rows cannot take less than about 0.3 ms in
-// q order, whatever the design.
+// order, 64-byte rows at scattered addresses.
 //
+// Skew.  The ball query takes the first S in-radius points in scan order,
+// so the lowest-index points of every neighbourhood are hit by nearly every
+// neighbour: over 1200 rows a target at S = 64, one stretch of a warp's
+// stream.  Each of the N query rows gives a target one hit, or more only
+// when the row has fewer than S points in its radius and the target is its
+// first; so on the encoding's own indices a target has about N rows at most
+// (a cloud whose points all lie within the radius of each other gives S
+// targets of exactly N rows each).  A target of many more rows, as when
+// every row goes to one target, is one warp's stream and sets the kernel's
+// time.
+
 // The TPU kernel turned the scatter into a one-hot matmul (the TPU has no
 // atomics, and sums in a fixed order); the first CUDA version added with
 // float2 atomics, whose order changed from run to run.
@@ -86,8 +83,7 @@ constexpr int kCountThreads = 256;
 constexpr int kCountBatch = 8;  // index loads in flight a thread
 constexpr int kScanThreads = 1024;
 constexpr int kSumWarps = 8;
-constexpr int kUnits = 8;  // vector loads a lane issues a round (hot kernel)
-constexpr int kSumUnits = 4;  // the same in the sum kernel
+constexpr int kSumUnits = 4;  // vector loads a lane issues a round
 constexpr int kStages = 3;  // rounds a warp of the sum kernel holds
 constexpr int kMaxAcc = 4;  // channels a lane sums: C <= 128
 
@@ -168,51 +164,17 @@ __device__ __forceinline__ int block_scan(int x, int* warp_sums, int* total) {
   return excl;
 }
 
-// Inclusive suffix minimum of x over the block (a whole number of warps);
-// *all gets the minimum over the block.
-__device__ __forceinline__ int block_suffix_min(int x, int* warp_mins,
-                                                int* all) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  int m = x;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_down_sync(kFull, m, d);
-    if (lane + d < 32) m = min(m, y);
-  }
-  if (lane == 0) warp_mins[warp] = m;
-  __syncthreads();
-  if (warp == 0) {
-    int s = lane < warps ? warp_mins[lane] : INT_MAX;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_down_sync(kFull, s, d);
-      if (lane + d < 32) s = min(s, y);
-    }
-    warp_mins[lane] = s;
-  }
-  __syncthreads();
-  const int res = min(m, warp + 1 < warps ? warp_mins[warp + 1] : INT_MAX);
-  *all = warp_mins[0];
-  __syncthreads();
-  return res;
-}
-
 __global__ void __launch_bounds__(kScanThreads)
     scatter_rows_scan_kernel(int* __restrict__ counts,
                              int* __restrict__ offsets,
-                             int* __restrict__ hot_list,
-                             int* __restrict__ hot_count,
                              int* __restrict__ unit_first,
-                             int* __restrict__ next_run,
                              float* __restrict__ out, int n_targets, int C,
-                             int tiles, int hot, int unit_rows, int units) {
+                             int tiles, int unit_rows, int units) {
   __shared__ int warp_sums[kScanThreads / 32];
   const int b = blockIdx.x;
   int* cnt = counts + static_cast<int64_t>(b) * tiles * n_targets;
   int* off = offsets + static_cast<int64_t>(b) * (n_targets + 1);
-  int* hot_b = hot_list + static_cast<int64_t>(b) * n_targets;
-  int carry = 0, hot_carry = 0;
+  int carry = 0;
   for (int n0 = 0; n0 < n_targets; n0 += kScanThreads) {
     const int n = n0 + threadIdx.x;
     int total = 0;
@@ -224,12 +186,6 @@ __global__ void __launch_bounds__(kScanThreads)
     int sum;
     const int excl = carry + block_scan(total, warp_sums, &sum);
     carry += sum;
-    // Targets with more than `hot` rows, in ascending n, for the hot
-    // kernel.
-    const int is_hot = n < n_targets && total > hot;
-    const int at = hot_carry + block_scan(is_hot, warp_sums, &sum);
-    hot_carry += sum;
-    if (is_hot) hot_b[at] = n;
     if (n < n_targets) {
       off[n] = excl;
       int run = excl;
@@ -240,34 +196,17 @@ __global__ void __launch_bounds__(kScanThreads)
         *p = run;
         run += c;
       }
+      // Targets without rows get their zeros here: the sum kernel passes
+      // over them.
+      if (total == 0 && out != nullptr) {
+        float2* z = reinterpret_cast<float2*>(
+            out + (static_cast<int64_t>(b) * n_targets + n) * C);
+        for (int i = 0; i < C / 2; ++i) z[i] = make_float2(0.0f, 0.0f);
+      }
     }
   }
-  if (threadIdx.x == 0) {
-    off[n_targets] = carry;
-    hot_count[b] = hot_carry;
-  }
+  if (threadIdx.x == 0) off[n_targets] = carry;
   __syncthreads();  // off is complete (the block's own global writes)
-  // Targets without rows get their zeros here; next_run[n] is the first
-  // target at or after n with rows and not hot (N if none), where the sum
-  // kernel's warps resume after a hot or empty target.
-  int* nxt = next_run + static_cast<int64_t>(b) * (n_targets + 1);
-  int later = n_targets;
-  for (int n0 = (n_targets - 1) / kScanThreads * kScanThreads; n0 >= 0;
-       n0 -= kScanThreads) {
-    const int n = n0 + threadIdx.x;
-    const int total = n < n_targets ? off[n + 1] - off[n] : -1;
-    if (total == 0 && out != nullptr) {
-      float2* z = reinterpret_cast<float2*>(
-          out + (static_cast<int64_t>(b) * n_targets + n) * C);
-      for (int i = 0; i < C / 2; ++i) z[i] = make_float2(0.0f, 0.0f);
-    }
-    int chunk_min;
-    const int m = block_suffix_min(
-        total > 0 && total <= hot ? n : n_targets, warp_sums, &chunk_min);
-    if (n < n_targets) nxt[n] = min(m, later);
-    later = min(later, chunk_min);
-  }
-  if (threadIdx.x == 0) nxt[n_targets] = n_targets;
   // The sum kernel's unit j of this b (one warp) takes the targets whose
   // rows start in [j, j + 1) * unit_rows: unit_first[j] = #{n : off[n] <
   // j * unit_rows}, and unit_first[units] = N (the last unit takes the rest).
@@ -382,21 +321,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <int VEC>
-struct VecOf;
-template <>
-struct VecOf<16> {
-  using type = uint4;
-};
-template <>
-struct VecOf<8> {
-  using type = uint2;
-};
-template <>
-struct VecOf<4> {
-  using type = unsigned;
-};
-
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -423,13 +347,12 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 // A round: up to `rows` consecutive entries of perm from `pos` (fewer at a
-// run's end), read as 32 x kUnits vectors of VEC bytes.  A row's `units`
+// run's end), read as 32 x kSumUnits vectors of VEC bytes.  A row's `units`
 // vectors are spread over a power of two of lanes, 2^shift: a lane's k-th
 // vector is part (lane + 32 k) % 2^shift of row (lane + 32 k) >> shift, and
 // idle where that part is past the row's end.
-template <typename T, int VEC, int U = kUnits>
+template <typename T, int VEC>
 struct Round {
-  using V = typename VecOf<VEC>::type;
   int row_bytes, units, shift, rows, lane;
 
   __device__ __forceinline__ Round(int C, int lane_) : lane(lane_) {
@@ -437,7 +360,7 @@ struct Round {
     units = row_bytes / VEC;
     shift = 0;
     while ((1 << shift) < units) ++shift;
-    rows = (U * 32) >> shift;
+    rows = (kSumUnits * 32) >> shift;
   }
   __device__ __forceinline__ int row(int k) const {
     return (lane + 32 * k) >> shift;
@@ -452,43 +375,24 @@ struct Round {
     return min(rows, end - pos);
   }
   __device__ __forceinline__ void load_perm(const int* pm, int pos, int end,
-                                            int (&p)[U]) const {
+                                            int (&p)[kSumUnits]) const {
     const int h = held(pos, end);
 #pragma unroll
-    for (int k = 0; k < U; ++k)
+    for (int k = 0; k < kSumUnits; ++k)
       if (on(k, h)) p[k] = __ldg(pm + pos + row(k));
-  }
-  __device__ __forceinline__ void load_rows(const unsigned char* src, int pos,
-                                            int end, const int (&p)[U],
-                                            V (&v)[U]) const {
-    const int h = held(pos, end);
-#pragma unroll
-    for (int k = 0; k < U; ++k)
-      if (on(k, h))
-        v[k] = __ldg(reinterpret_cast<const V*>(
-            src + static_cast<int64_t>(p[k]) * row_bytes + part(k) * VEC));
   }
   // The round's rows straight into `slot`, asynchronously.
   __device__ __forceinline__ void issue(unsigned char* slot,
                                         const unsigned char* src, int pos,
                                         int end,
-                                        const int (&p)[U]) const {
+                                        const int (&p)[kSumUnits]) const {
     const int h = held(pos, end);
 #pragma unroll
-    for (int k = 0; k < U; ++k)
+    for (int k = 0; k < kSumUnits; ++k)
       if (on(k, h))
         copy_async<VEC>(slot + row(k) * row_bytes + part(k) * VEC,
                         src + static_cast<int64_t>(p[k]) * row_bytes +
                             part(k) * VEC);
-  }
-  __device__ __forceinline__ void stage(unsigned char* slot, int pos, int end,
-                                        const V (&v)[U]) const {
-    const int h = held(pos, end);
-#pragma unroll
-    for (int k = 0; k < U; ++k)
-      if (on(k, h))
-        *reinterpret_cast<V*>(slot + row(k) * row_bytes + part(k) * VEC) =
-            v[k];
   }
 };
 
@@ -528,71 +432,6 @@ __device__ __forceinline__ void write_row(float* o, int C, int lane,
   }
 }
 
-// The targets with more than `hot` rows (hot_list, hot_count), one block
-// each in turn: warps 1 to 7 each stage one round a cycle, warp 0 adds the
-// cycle's rounds in order while the loaders' next rounds are in flight.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kSumWarps * 32)
-    scatter_rows_hot_kernel(const T* __restrict__ dy,
-                            const int* __restrict__ offsets,
-                            const int* __restrict__ perm,
-                            const int* __restrict__ hot_list,
-                            const int* __restrict__ hot_count,
-                            float* __restrict__ out, int batch,
-                            int q_per_batch, int n_targets, int C) {
-  using V = typename VecOf<VEC>::type;
-  constexpr int kLoaders = kSumWarps - 1;
-  __shared__ __align__(16) unsigned char stage[kSumWarps][kUnits * 32 * VEC];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Round<T, VEC> rd(C, lane);
-  const int blocks = gridDim.x;
-  int first = 0;  // hot item i (over b, then the list) -> block i % blocks
-  for (int b = 0; b < batch; ++b) {
-    const int nh = hot_count[b];
-    const int* off = offsets + static_cast<int64_t>(b) * (n_targets + 1);
-    const unsigned char* src = reinterpret_cast<const unsigned char*>(dy) +
-                               static_cast<int64_t>(b) * q_per_batch *
-                                   rd.row_bytes;
-    const int* pm = perm + static_cast<int64_t>(b) * q_per_batch;
-    for (int k = (static_cast<int>(blockIdx.x) - first % blocks + blocks) %
-                 blocks;
-         k < nh; k += blocks) {
-      const int n = hot_list[static_cast<int64_t>(b) * n_targets + k];
-      const int start = off[n], end = off[n + 1];
-      const int cycles =
-          (end - start + kLoaders * rd.rows - 1) / (kLoaders * rd.rows);
-      // Loader w's round in cycle c starts at start + (c * 7 + w - 1) rows.
-#define POS_OF(c, w) (start + ((c) * kLoaders + (w) - 1) * rd.rows)
-      float acc[kMaxAcc] = {};
-      int p[kUnits];
-      V v[kUnits];
-      if (warp > 0) {
-        rd.load_perm(pm, POS_OF(0, warp), end, p);
-        rd.load_rows(src, POS_OF(0, warp), end, p, v);
-        rd.load_perm(pm, POS_OF(1, warp), end, p);
-      }
-      for (int c = 0; c < cycles; ++c) {
-        __syncthreads();  // warp 0 is done with the previous cycle's rounds
-        if (warp > 0) {
-          rd.stage(stage[warp], POS_OF(c, warp), end, v);
-          rd.load_rows(src, POS_OF(c + 1, warp), end, p, v);
-          rd.load_perm(pm, POS_OF(c + 2, warp), end, p);
-        }
-        __syncthreads();  // this cycle's rounds are staged
-        if (warp == 0)
-          for (int w = 1; w <= kLoaders; ++w)
-            add_rows(reinterpret_cast<const T*>(stage[w]),
-                     rd.held(POS_OF(c, w), end), C, lane, acc);
-      }
-      if (warp == 0)
-        write_row(out + (static_cast<int64_t>(b) * n_targets + n) * C, C,
-                  lane, acc);
-    }
-    first += nh;
-  }
-#undef POS_OF
-}
-
 // off[base + lane] in each lane of a warp; at(n) for a warp-uniform n <= N,
 // reloaded when n leaves the window.
 struct OffWindow {
@@ -610,24 +449,35 @@ struct OffWindow {
   }
 };
 
-// The targets with rows that are not hot.  Each warp takes one unit: the
-// targets of one b whose rows start in a window of unit_rows positions of
-// perm (unit_first), units taken j-major.  The warp streams the rows of
-// each run of consecutive targets up to the next hot one in rounds, copied
-// asynchronously into its ring of kStages rounds in shared memory, two in
-// flight while one is added, their perm entries loaded two rounds ahead.
-// It cuts the sum at each target's end (offsets read through a window of 32
-// held in the lanes), writing the target's row; then it resumes at
-// next_run.
+// The first target in [n, last) with rows, or `last`: 32 targets a ballot
+// (n warp-uniform).
+__device__ __forceinline__ int next_with_rows(const int* off, int n, int last,
+                                              int lane) {
+  for (;; n += 32) {
+    const int k = n + lane;
+    const bool stop = k >= last || __ldg(off + k + 1) > __ldg(off + k);
+    const unsigned m = __ballot_sync(kFull, stop);
+    if (m) return min(n + __ffs(m) - 1, last);
+  }
+}
+
+// Each warp takes one unit: the targets of one b whose rows start in a
+// window of unit_rows positions of perm (unit_first), units taken j-major.
+// The warp streams the unit's rows in rounds, copied asynchronously into
+// its ring of kStages rounds in shared memory, two in flight while one is
+// added, their perm entries loaded two rounds ahead.  It cuts the sum at
+// each target's end (offsets read through a window of 32 held in the
+// lanes), writes the target's row, and passes over the targets without
+// rows (the scan kernel wrote their zeros).  A target is summed by the warp
+// of the unit where its rows start, however long it is.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kSumWarps * 32, 2)
     scatter_rows_sum_kernel(const T* __restrict__ dy,
                             const int* __restrict__ offsets,
                             const int* __restrict__ perm,
                             const int* __restrict__ unit_first,
-                            const int* __restrict__ next_run,
                             float* __restrict__ out, int batch,
-                            int q_per_batch, int n_targets, int C, int hot,
+                            int q_per_batch, int n_targets, int C,
                             int units) {
   constexpr int kSlot = kSumUnits * 32 * VEC;  // bytes of a round
   extern __shared__ __align__(16) unsigned char ring_all[];
@@ -635,89 +485,72 @@ __global__ void __launch_bounds__(kSumWarps * 32, 2)
   unsigned char* ring = ring_all + warp * kStages * kSlot;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * kSumWarps + warp;
   if (g >= static_cast<int64_t>(batch) * units) return;  // whole warp
-  const Round<T, VEC, kSumUnits> rd(C, lane);
+  const Round<T, VEC> rd(C, lane);
   const int j = static_cast<int>(g / batch), b = static_cast<int>(g % batch);
   const int* off = offsets + static_cast<int64_t>(b) * (n_targets + 1);
   const int* first = unit_first + static_cast<int64_t>(b) * (units + 1);
-  const int* nxt = next_run + static_cast<int64_t>(b) * (n_targets + 1);
   const int last = __ldg(first + j + 1);
-  int cur = __ldg(nxt + __ldg(first + j));
-  if (cur >= last) return;
+  int tc = next_with_rows(off, __ldg(first + j), last, lane);  // summed now
+  if (tc >= last) return;
   const unsigned char* src = reinterpret_cast<const unsigned char*>(dy) +
                              static_cast<int64_t>(b) * q_per_batch *
                                  rd.row_bytes;
   const int* pm = perm + static_cast<int64_t>(b) * q_per_batch;
   float* ob = out + static_cast<int64_t>(b) * n_targets * C;
   OffWindow ow(off, n_targets, lane);
-  while (cur < last) {
-    const int lo = ow.at(cur);
-    // The run: targets [cur, t), up to the next hot one or the unit's end;
-    // the targets without rows in it are passed over.
-    int t = cur + 1;
-    for (;;) {
-      const int k = t + lane;
-      bool stop = k >= last;
-      if (!stop) stop = __ldg(off + k + 1) - __ldg(off + k) > hot;
-      const unsigned m = __ballot_sync(kFull, stop);
-      if (m) {
-        t += __ffs(m) - 1;
-        break;
-      }
-      t += 32;
-    }
-    const int end = ow.at(t);
-    float acc[kMaxAcc] = {};
-    int tc = cur, tend = ow.at(cur + 1);  // the target summed, its end
-    // Rounds i + 1 and i + 2 in flight while round i is added (slot
-    // i % 3); the perm entries of the round issued next were loaded two
-    // rounds before, into one of two register sets in turn.
-    static_assert(kStages == 3, "two rounds ahead");
-    constexpr int kAhead = kStages - 1;
-    int p0[kSumUnits], p1[kSumUnits];
-    rd.load_perm(pm, lo, end, p0);
-    rd.load_perm(pm, lo + rd.rows, end, p1);
-    rd.issue(ring, src, lo, end, p0);
-    copy_commit();
-    rd.issue(ring + kSlot, src, lo + rd.rows, end, p1);
-    copy_commit();
-    rd.load_perm(pm, lo + kAhead * rd.rows, end, p0);
-    rd.load_perm(pm, lo + (kAhead + 1) * rd.rows, end, p1);
-    int slot = 0;
-    for (int pos2 = lo; pos2 < end; pos2 += 2 * rd.rows) {
+  const int lo = ow.at(tc), end = ow.at(last);
+  int tend = ow.at(tc + 1);  // where target tc's rows end
+  float acc[kMaxAcc] = {};
+  // Rounds i + 1 and i + 2 in flight while round i is added (slot i % 3);
+  // the perm entries of the round issued next were loaded two rounds
+  // before, into one of two register sets in turn.
+  static_assert(kStages == 3, "two rounds ahead");
+  constexpr int kAhead = kStages - 1;
+  int p0[kSumUnits], p1[kSumUnits];
+  rd.load_perm(pm, lo, end, p0);
+  rd.load_perm(pm, lo + rd.rows, end, p1);
+  rd.issue(ring, src, lo, end, p0);
+  copy_commit();
+  rd.issue(ring + kSlot, src, lo + rd.rows, end, p1);
+  copy_commit();
+  rd.load_perm(pm, lo + kAhead * rd.rows, end, p0);
+  rd.load_perm(pm, lo + (kAhead + 1) * rd.rows, end, p1);
+  int slot = 0;
+  for (int pos2 = lo; pos2 < end; pos2 += 2 * rd.rows) {
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int pos = pos2 + u * rd.rows;
-        if (pos >= end) break;
-        int (&p)[kSumUnits] = u == 0 ? p0 : p1;
-        const int ahead = slot == 0 ? kStages - 1 : slot - 1;
-        rd.issue(ring + ahead * kSlot, src, pos + kAhead * rd.rows, end, p);
-        copy_commit();
-        rd.load_perm(pm, pos + (kAhead + 2) * rd.rows, end, p);
-        copy_wait<kAhead>();  // this round's copies are done
-        __syncwarp();
-        const T* st = reinterpret_cast<const T*>(ring + slot * kSlot);
-        const int h = rd.held(pos, end);
-        for (int r = 0; r < h;) {
-          const int upto = min(h, tend - pos);
-          add_rows(st + r * C, upto - r, C, lane, acc);
-          r = upto;
-          if (pos + r < tend) continue;
-          write_row(ob + static_cast<int64_t>(tc) * C, C, lane, acc);
+    for (int u = 0; u < 2; ++u) {
+      const int pos = pos2 + u * rd.rows;
+      if (pos >= end) break;
+      int (&p)[kSumUnits] = u == 0 ? p0 : p1;
+      const int ahead = slot == 0 ? kStages - 1 : slot - 1;
+      rd.issue(ring + ahead * kSlot, src, pos + kAhead * rd.rows, end, p);
+      copy_commit();
+      rd.load_perm(pm, pos + (kAhead + 2) * rd.rows, end, p);
+      copy_wait<kAhead>();  // this round's copies are done
+      __syncwarp();
+      const T* st = reinterpret_cast<const T*>(ring + slot * kSlot);
+      const int h = rd.held(pos, end);
+      for (int r = 0; r < h;) {
+        const int upto = min(h, tend - pos);
+        add_rows(st + r * C, upto - r, C, lane, acc);
+        r = upto;
+        if (pos + r < tend) continue;
+        write_row(ob + static_cast<int64_t>(tc) * C, C, lane, acc);
 #pragma unroll
-          for (int a = 0; a < kMaxAcc; ++a) acc[a] = 0.0f;
-          // The next target with rows (those without have their zeros).
-          do {
-            ++tc;
-            tend = tc < t ? ow.at(tc + 1) : INT_MAX;
-          } while (tc < t && tend == pos + r);
+        for (int a = 0; a < kMaxAcc; ++a) acc[a] = 0.0f;
+        // The next target with rows: most often tc + 1.
+        ++tc;
+        tend = tc < last ? ow.at(tc + 1) : INT_MAX;
+        if (tend == pos + r) {
+          tc = next_with_rows(off, tc + 1, last, lane);
+          tend = tc < last ? ow.at(tc + 1) : INT_MAX;
         }
-        __syncwarp();  // the slot is free for the round after next
-        slot = slot == kStages - 1 ? 0 : slot + 1;
       }
+      __syncwarp();  // the slot is free for the round after next
+      slot = slot == kStages - 1 ? 0 : slot + 1;
     }
-    copy_wait<0>();
-    cur = t < last ? __ldg(nxt + t) : last;
   }
+  copy_wait<0>();
 }
 
 int raise_smem_limit(const void* fn, int bytes, int* set_to) {
@@ -732,19 +565,16 @@ struct SumArgs {
   const void* dy;
   const int* offsets;
   const int* perm;
-  const int* hot_list;
-  const int* hot_count;
   const int* unit_first;
-  const int* next_run;
   float* out;
-  int B, Q, N, C, hot, hot_blocks, units;
+  int B, Q, N, C, units;
 };
 
 template <typename T, int VEC>
 int launch_sum(const SumArgs& a, cudaStream_t st) {
   static int smem_set = 0;
   const int smem = kSumWarps * kStages * kSumUnits * 32 * VEC;
-  int err = raise_smem_limit(
+  const int err = raise_smem_limit(
       reinterpret_cast<const void*>(scatter_rows_sum_kernel<T, VEC>), smem,
       &smem_set);
   if (err) return err;
@@ -752,13 +582,8 @@ int launch_sum(const SumArgs& a, cudaStream_t st) {
   const unsigned blocks =
       static_cast<unsigned>((warps + kSumWarps - 1) / kSumWarps);
   scatter_rows_sum_kernel<T, VEC><<<blocks, kSumWarps * 32, smem, st>>>(
-      static_cast<const T*>(a.dy), a.offsets, a.perm, a.unit_first,
-      a.next_run, a.out, a.B, a.Q, a.N, a.C, a.hot, a.units);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  scatter_rows_hot_kernel<T, VEC><<<a.hot_blocks, kSumWarps * 32, 0, st>>>(
-      static_cast<const T*>(a.dy), a.offsets, a.perm, a.hot_list,
-      a.hot_count, a.out, a.B, a.Q, a.N, a.C);
+      static_cast<const T*>(a.dy), a.offsets, a.perm, a.unit_first, a.out,
+      a.B, a.Q, a.N, a.C, a.units);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -775,20 +600,15 @@ int launch_sum_vec(int vec, const SumArgs& a, cudaStream_t st) {
 // C * itemsize bytes read as `vec`-byte vectors (vec divides the row and
 // dy's alignment; 4, 8 or 16); out (B, N, C) float32.  Scratch, all int32:
 // counts (B, tiles, N) with tiles = ceil(Q / tile), offsets (B, N + 1),
-// perm (B, Q), hot_list (B, N), hot_count (B), unit_first (B, units + 1)
-// with units = max(1, ceil(Q / unit_rows)), next_run (B, N + 1).  tile is
-// a multiple of 32 * place_warps (place_warps a block of the placement
-// kernel, 1 to 8).  Targets with more than `hot` rows are summed by one of
-// `hot_blocks` blocks each, the others by the warp of their unit.  With
-// out == nullptr the call stops after the placement (offsets and perm
-// only; dy is not read).  Returns the first nonzero cudaGetLastError() of
-// its launches.
+// perm (B, Q), unit_first (B, units + 1) with units = max(1, ceil(Q /
+// unit_rows)).  tile is a multiple of 32 * place_warps (place_warps a block
+// of the placement kernel, 1 to 8).  With out == nullptr the call stops
+// after the placement (offsets and perm only; dy is not read).  Returns
+// the first nonzero cudaGetLastError() of its launches.
 extern "C" int scatter_rows_launch(const void* idx, const void* dy, void* out,
                                    void* counts, void* offsets, void* perm,
-                                   void* hot_list, void* hot_count,
-                                   void* unit_first, void* next_run, int B,
-                                   int Q, int N, int C, int tile,
-                                   int place_warps, int hot, int hot_blocks,
+                                   void* unit_first, int B, int Q, int N,
+                                   int C, int tile, int place_warps,
                                    int unit_rows, int is_bf16, int vec,
                                    void* stream) {
   static int count_smem_set = 0, place_smem_set = 0;
@@ -798,10 +618,7 @@ extern "C" int scatter_rows_launch(const void* idx, const void* dy, void* out,
   int* cnt = static_cast<int*>(counts);
   int* off = static_cast<int*>(offsets);
   int* pm = static_cast<int*>(perm);
-  int* hl = static_cast<int*>(hot_list);
-  int* hc = static_cast<int*>(hot_count);
   int* uf = static_cast<int*>(unit_first);
-  int* nr = static_cast<int*>(next_run);
   const int tiles = (Q + tile - 1) / tile;
   const int units = max(1, (Q + unit_rows - 1) / unit_rows);
   int err;
@@ -816,8 +633,7 @@ extern "C" int scatter_rows_launch(const void* idx, const void* dy, void* out,
     if ((err = static_cast<int>(cudaGetLastError()))) return err;
   }
   scatter_rows_scan_kernel<<<B, kScanThreads, 0, st>>>(
-      cnt, off, hl, hc, uf, nr, static_cast<float*>(out), N, C, tiles, hot,
-      unit_rows, units);
+      cnt, off, uf, static_cast<float*>(out), N, C, tiles, unit_rows, units);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
   if (tiles > 0) {
     const int smem = 4 * (2 * tile + N) + 2 * place_warps * (N + (N & 1));
@@ -832,9 +648,8 @@ extern "C" int scatter_rows_launch(const void* idx, const void* dy, void* out,
     if ((err = static_cast<int>(cudaGetLastError()))) return err;
   }
   if (out == nullptr) return 0;
-  const SumArgs a{dy, off, pm, hl, hc, uf, nr, static_cast<float*>(out),
-                  B, Q, N, C, hot, hot_blocks, units};
+  const SumArgs a{dy, off, pm, uf, static_cast<float*>(out), B, Q, N, C,
+                  units};
   return is_bf16 ? launch_sum_vec<__nv_bfloat16>(vec, a, st)
                  : launch_sum_vec<float>(vec, a, st);
 }
-

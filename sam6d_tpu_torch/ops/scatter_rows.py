@@ -12,11 +12,11 @@ stable counting sort of idx: `offsets` (B, N + 1) and `perm` (B, Q), each
 target's rows in ascending q; `inverse_index_plain` computes the same on
 the CPU) and adds each target's rows in that order from 0.0f (a warp
 streams the targets whose rows start in a window of `UNIT_ROWS` positions
-of perm; a whole block takes a target of more than `HOT_ROWS` rows), so its
-result is the same in every launch and equals the sequential float32 sum
-of `index_add_` bit for bit.  A call is five kernel launches (count, scan,
-place, sum, hot sum) and no host synchronisation; `prepare` + `launch` are
-the bare launch, `inverse_index_cuda` the first three alone.
+of perm), so its result is the same in every launch and equals the
+sequential float32 sum of `index_add_` bit for bit.  A call is four kernel
+launches (count, scan, place, sum) and no host synchronisation; `prepare`
++ `launch` are the bare launch, `inverse_index_cuda` the first three
+alone.
 """
 
 from __future__ import annotations
@@ -34,16 +34,15 @@ _I = ctypes.c_int
 KERNEL = Kernel(
     "scatter_rows", "scatter_rows.cu",
     replaces="sam6d_tpu/ops/pallas/scatter_rows.py:65",
-    signatures={"scatter_rows_launch": [_V] * 10 + [_I] * 11 + [_V]},
+    signatures={"scatter_rows_launch": [_V] * 7 + [_I] * 9 + [_V]},
 )
 
 SMEM_LIMIT = 232448  # shared memory a block may have (H100)
 MAX_TILE = 8192  # rows a block of the count and placement kernels
-MAX_C = 128  # channels: four a lane of the sum kernels
-SUM_WARPS = 8  # warps a block of the sum kernels
+MAX_C = 128  # channels: four a lane of the sum kernel
+SUM_WARPS = 8  # warps a block of the sum kernel
 SUM_UNITS = 4  # vectors a lane copies a round of the sum kernel
 SUM_STAGES = 3  # rounds in a warp's ring of the sum kernel
-HOT_ROWS = 2048  # targets with more rows are summed by a whole block
 UNIT_ROWS = 1024  # perm positions whose targets one warp of the sum takes
 
 
@@ -52,8 +51,7 @@ class ScatterPlan(NamedTuple):
     count and placement kernels (`tiles` a batch item), `place_warps` a
     placement block, their dynamic shared memory, the sum kernel's `vec`
     bytes a copy, its `rows` a round and its ring (`sum_smem` a block), the
-    rows above which a target is summed by a whole block (`hot`), the perm
-    positions of a sum warp's unit, and the int32 scratch."""
+    perm positions of a sum warp's unit, and the int32 scratch."""
 
     tile: int
     tiles: int
@@ -63,7 +61,6 @@ class ScatterPlan(NamedTuple):
     vec: int
     rows: int
     sum_smem: int
-    hot: int
     unit_rows: int
     units: int
     scratch_ints: int
@@ -100,10 +97,8 @@ def scatter_plan(B: int, Q: int, N: int, C: int, itemsize: int,
         place_smem=4 * (2 * tile + N) + 2 * warps * (N + N % 2), vec=vec,
         rows=(32 * SUM_UNITS) >> shift,
         sum_smem=SUM_WARPS * SUM_STAGES * SUM_UNITS * 32 * vec,
-        hot=HOT_ROWS,
         unit_rows=UNIT_ROWS, units=units,
-        scratch_ints=(B * tiles * N + B * (N + 1) + B * Q + B * N + B
-                      + B * (units + 1) + B * (N + 1)))
+        scratch_ints=B * tiles * N + B * (N + 1) + B * Q + B * (units + 1))
 
 
 def scatter_rows_plain(idx: torch.Tensor, dy: torch.Tensor,
@@ -161,42 +156,32 @@ def _check(idx: torch.Tensor, dy: torch.Tensor | None,
 def prepare(idx: torch.Tensor, n_targets: int, C: int, plan: ScatterPlan):
     """The output (B, N, C) float32, uninitialised (the kernel writes every
     row), and the int32 scratch carved from one buffer: counts (B, tiles,
-    N), offsets (B, N + 1), perm (B, Q), hot_list (B, N), hot_count (B),
-    unit_first (B, units + 1), next_run (B, N + 1)."""
+    N), offsets (B, N + 1), perm (B, Q), unit_first (B, units + 1)."""
     B, Q = idx.shape
     out = torch.empty((B, n_targets, C), dtype=torch.float32,
                       device=idx.device)
     work = torch.empty(plan.scratch_ints, dtype=torch.int32, device=idx.device)
     sizes = (B * plan.tiles * n_targets, B * (n_targets + 1), B * Q,
-             B * n_targets, B, B * (plan.units + 1), B * (n_targets + 1))
-    counts, offsets, perm, *rest = work.split(sizes)
+             B * (plan.units + 1))
+    counts, offsets, perm, unit_first = work.split(sizes)
     return (out, counts, offsets.view(B, n_targets + 1), perm.view(B, Q),
-            *rest)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+            unit_first)
 
 
 def launch(idx, dy, n_targets: int, plan: ScatterPlan, out, counts, offsets,
-           perm, hot_list, hot_count, unit_first, next_run) -> None:
-    """One K7 call (five kernel launches: count, scan, place, sum, hot sum)
-    on checked, prepared operands (`prepare`); with out and dy None it
-    stops after the placement.  The hot sum runs one block an SM."""
+           perm, unit_first) -> None:
+    """One K7 call (four kernel launches: count, scan, place, sum) on
+    checked, prepared operands (`prepare`); with out and dy None it stops
+    after the placement."""
     B, Q = idx.shape
     C = 0 if dy is None else dy.shape[-1]
     bf16 = dy is not None and dy.dtype == torch.bfloat16
-    dev = idx.device.index
-    if dev is None:
-        dev = torch.cuda.current_device()
     KERNEL.launches += 1
     KERNEL.call(
         "scatter_rows_launch", ptr(idx), ptr(dy), ptr(out), ptr(counts),
-        ptr(offsets), ptr(perm), ptr(hot_list), ptr(hot_count),
-        ptr(unit_first), ptr(next_run), B, Q, n_targets, C, plan.tile,
-        plan.place_warps, plan.hot, _sm_count(dev), plan.unit_rows, int(bf16),
-        plan.vec, current_stream(idx.device),
+        ptr(offsets), ptr(perm), ptr(unit_first), B, Q, n_targets, C,
+        plan.tile, plan.place_warps, plan.unit_rows, int(bf16), plan.vec,
+        current_stream(idx.device),
     )
 
 

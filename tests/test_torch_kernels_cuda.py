@@ -468,11 +468,21 @@ def test_scatter_rows_kernel_matches_plain(dev):
 
 def _scatter_case(dev, case, B=4, N=2048):
     """(idx on the card, N): the positional encoding's ball-query indices
-    at both scales, every row to one target, every row dropped."""
-    if case.startswith("ball_query"):
-        S = int(case[-2:])
+    at both scales; those at S = 64 with 3000 and 2500 of each batch item's
+    rows sent to two mid-range targets (each target then spans several sum
+    units beside targets of their own rows); every row to one target;
+    every row dropped."""
+    if case.startswith("ball_query") or case == "two_long":
+        S = 32 if case == "ball_query_32" else 64
         pts = torch.from_numpy(synthetic_clouds(B, N, seed=S)).to(dev)
-        return ball_query_rows(pts, 0.1 if S == 32 else 0.2, S), N
+        idx = ball_query_rows(pts, 0.1 if S == 32 else 0.2, S)
+        if case == "two_long":
+            g = torch.Generator().manual_seed(4)
+            for b in range(B):
+                rows = torch.randperm(idx.shape[1], generator=g)[:5500]
+                idx[b, rows[:3000].to(dev)] = 700
+                idx[b, rows[3000:].to(dev)] = 1400
+        return idx, N
     idx = torch.full((B, N * 8), 5, dtype=torch.long, device=dev)
     if case == "all_dropped":
         idx[:, ::2] = -1
@@ -480,7 +490,7 @@ def _scatter_case(dev, case, B=4, N=2048):
     return idx, N
 
 
-SCATTER_CASES = ["ball_query_32", "ball_query_64", "one_target",
+SCATTER_CASES = ["ball_query_32", "ball_query_64", "two_long", "one_target",
                  "all_dropped"]
 
 
