@@ -43,7 +43,18 @@ process per source, all at once), then:
    metrics of each step; counters zeroed before and read after, K1, K2,
    K3 (the embedding backward) and K7 (the row scatter-add) required.
    One more step runs under torch.profiler, which also reports K7's
-   device time.
+   device time;
+6. the file demo at full width (`pipeline/demo.py`, as a user runs it:
+   SAM ViT-H + DINOv2-L in bfloat16, the PEM's ViT-B in float32, random
+   weights from the demo's seeds), in a temporary directory under the
+   ignored `build/`: `make_example`, then `demo.main` with the stages
+   render, ism and pem on the card, then the pem stage again on the
+   scene's own detection (random weights find no object, so the first
+   PEM stage onboards only).  Required: 42 templates with non-empty masks
+   whose xyz lie on the cube's surface, BOP23 rows in
+   detection_ism.json, one pose with |det R - 1| < 1e-2 and a finite t,
+   a 480 x 640 vis_pem.png; K4, K5 and K6 launched in the ISM stage, K1
+   and K2 in each PEM stage.  The stage times (`StageTimer`) are printed.
 
 Any failure exits non-zero.  The last lines are the nvidia-smi name and
 power limit, {"kernels": [...]}, and
@@ -1153,6 +1164,26 @@ def check_tiny_train_step(dev):
 
 
 
+def write_gt_detection(scene_dir: str, out_path: str,
+                       far_mm: float = 1200.0):
+    """A detection_ism.json holding the example scene's own object
+    (`pipeline/make_example.py`): its pixels are those nearer than the
+    scene's far plane, its score is 1."""
+    import numpy as np
+
+    from sam6d_tpu_torch.utils.detections import Detections, save_json_bop23
+    from sam6d_tpu_torch.utils.png import read_png
+
+    mask = read_png(str(Path(scene_dir) / "depth.png")) < far_mm
+    ys, xs = np.nonzero(mask)
+    dets = Detections(
+        masks=mask[None],
+        boxes=np.array([[xs.min(), ys.min(), xs.max(), ys.max()]],
+                       np.float32),
+        scores=np.ones(1, np.float32), object_ids=np.zeros(1, np.int64))
+    save_json_bop23(out_path, dets.to_bop23(scene_id=0, image_id=0))
+
+
 def synthetic_scene(rng, H=480, W=640):
     """A few flat-coloured shapes on a textured background, their depth
     (0.6-0.8 m on a 1.0 m plane) and LINEMOD-like intrinsics."""
@@ -1502,6 +1533,140 @@ def phase_train(dev):
 
 
 
+def phase_demo(dev, smi: str):
+    """Phase 6: the file demo, render -> ISM -> PEM through files, at the
+    full width of the default configs; see the module docstring."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch.config import default_pem_config
+    from sam6d_tpu_torch.models.ism.onboarding import load_template_crops
+    from sam6d_tpu_torch.ops import decode_tail, flash_rpe, fps, geo_embed
+    from sam6d_tpu_torch.pipeline import demo
+    from sam6d_tpu_torch.pipeline.make_example import make_example
+    from sam6d_tpu_torch.pipeline.pem_data import load_all_templates
+    from sam6d_tpu_torch.utils.png import read_png
+
+    pem_kernels = [fps.KERNEL, geo_embed.KERNEL]
+    ism_kernels = [flash_rpe.KERNEL_RPE, flash_rpe.KERNEL_PLAIN,
+                   decode_tail.KERNEL]
+    kernels = pem_kernels + ism_kernels
+    by_stage = {}
+    runs = {name: getattr(demo, f"run_{name}")
+            for name in ("render", "ism", "pem")}
+
+    def counted(name):
+        def run(args, timer):
+            before = {k.name: k.launches for k in kernels}
+            runs[name](args, timer)
+            torch.cuda.synchronize()
+            key = name if name not in by_stage else f"{name}_gt"
+            by_stage[key] = {k.name: k.launches - before[k.name]
+                             for k in kernels}
+        return run
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        scene, out = Path(tmp) / "scene", Path(tmp) / "out"
+        cad = make_example(str(scene))
+        args = ["--cad_path", cad, "--rgb_path", str(scene / "rgb.png"),
+                "--depth_path", str(scene / "depth.png"),
+                "--cam_path", str(scene / "camera.json"),
+                "--output_dir", str(out), "--device", str(dev)]
+        for name in runs:
+            setattr(demo, f"run_{name}", counted(name))
+        try:
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            stages = demo.main(args + ["--stages", "render,ism,pem"])
+            wall_s = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            ism_rows = json.loads((out / "detection_ism.json").read_text())
+            first_pem = json.loads((out / "detection_pem.json").read_text())
+            write_gt_detection(str(scene), str(out / "detection_ism.json"))
+            t0 = time.perf_counter()
+            stages_gt = demo.main(args + ["--stages", "pem"])
+            wall_gt_s = time.perf_counter() - t0
+        finally:
+            for name, fn in runs.items():
+                setattr(demo, f"run_{name}", fn)
+        launches = {k.name: k.launches for k in kernels}
+
+        tdir = out / "templates"
+        # The host's share of the onboarding stages: the template loaders
+        # alone (PNG decoding, crops, resizes), on the host's clock.
+        host_s = {}
+        for name, load in (
+                ("pem_load_all_templates",
+                 lambda: load_all_templates(str(tdir), default_pem_config())),
+                ("ism_load_template_crops",
+                 lambda: load_template_crops(str(tdir)))):
+            t0 = time.perf_counter()
+            load()
+            host_s[name] = time.perf_counter() - t0
+        surface_err = 0.0
+        for i in range(42):
+            mask = read_png(str(tdir / f"mask_{i}.png")) == 255
+            rgb = read_png(str(tdir / f"rgb_{i}.png"))
+            require(mask.any() and rgb.shape == (420, 420, 3),
+                    f"template {i}: empty mask or shape {rgb.shape}")
+            xyz = np.load(tdir / f"xyz_{i}.npy").astype(np.float32)[mask]
+            surface_err = max(surface_err, float(
+                np.abs(np.abs(xyz).max(axis=1) - 30.0).max()))
+        require(surface_err <= 2.0,
+                f"template xyz off the cube's surface by {surface_err} mm")
+        keys = {"scene_id", "image_id", "category_id", "bbox", "score",
+                "time", "segmentation"}
+        require(isinstance(ism_rows, list) and all(
+            set(r) == keys and 0.0 <= r["score"] <= 1.0
+            and r["segmentation"]["size"] == [480, 640] for r in ism_rows),
+            "detection_ism.json is not a list of BOP23 rows of the frame")
+        require(isinstance(first_pem, list), "detection_pem.json")
+        rows = json.loads((out / "detection_pem.json").read_text())
+        require(len(rows) == 1, f"{len(rows)} poses on the scene's object")
+        R = np.array(rows[0]["R"], np.float64).reshape(3, 3)
+        t = np.array(rows[0]["t"], np.float64)
+        det = float(np.linalg.det(R))
+        require(abs(det - 1.0) < 1e-2 and np.isfinite(t).all()
+                and np.isfinite(R).all(), f"pose: det R {det}, t {t}")
+        vis = read_png(str(out / "vis_pem.png"))
+        require(vis.shape == (480, 640, 3), f"vis_pem.png {vis.shape}")
+        gt = json.loads((scene / "gt_pose.json").read_text())
+    for k in ism_kernels:
+        require(by_stage["ism"][k.name] > 0,
+                f"{k.name} never ran in the demo's ISM stage")
+    for stage in ("pem", "pem_gt"):
+        for k in pem_kernels:
+            require(by_stage[stage][k.name] > 0,
+                    f"{k.name} never ran in the demo's {stage} stage")
+    log(smi)
+    log("demo stage times (ms, StageTimer, render,ism,pem): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stages.items())
+        + f"; wall {wall_s:.1f} s")
+    log("demo stage times (ms, StageTimer, pem on the scene's object): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in stages_gt.items())
+        + f"; wall {wall_gt_s:.1f} s")
+    log("demo template loaders alone (host clock, s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in host_s.items()))
+    log(f"demo: {len(ism_rows)} ISM detections, {len(first_pem)} poses; on "
+        f"the scene's object det R {det:.6f}, t {np.round(t, 2).tolist()} "
+        f"mm (ground truth {gt['t_mm']}); template xyz within "
+        f"{surface_err:.3f} mm of the cube's surface; launches by stage "
+        f"{by_stage}")
+    return dict(stages_ms=stages, stages_gt_ms=stages_gt, wall_s=wall_s,
+                loaders_host_s=host_s,
+                wall_gt_s=wall_gt_s, ism_detections=len(ism_rows),
+                poses=len(first_pem), pose_gt=dict(R=R.tolist(),
+                                                   t_mm=t.tolist()),
+                surface_err_mm=surface_err, launches_by_stage=by_stage,
+                launches=launches)
+
+
 def main():
     import torch
 
@@ -1546,6 +1711,12 @@ def main():
     torch.cuda.empty_cache()
     log("== phase 5: PEM training slice at full width")
     train = phase_train(dev)
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== phase 6: the file demo (render -> ISM -> PEM) at full width")
+    demo_run = phase_demo(dev, smi)
 
     def entry(kernel, rows, main_row, launches, library=None):
         main = rows[main_row]
@@ -1561,6 +1732,7 @@ def main():
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main.get("library_ms"),
             "library": library, "shape": main["shape"], "by_shape": rows,
+            "launches_demo": demo_run["launches"].get(kernel.name, 0),
         }
 
     # Main rows: FPS of one instance (2048 -> 196) and the bf16 embedding
@@ -1600,7 +1772,8 @@ def main():
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": build_s, "ptxas": ptxas, "tiny_bf16": tiny_bf16, "tiny_train": tiny_train,
-         "slice": sl, "ism": ism, "train": train, **report}, indent=1))
+         "slice": sl, "ism": ism, "train": train, "demo": demo_run,
+         **report}, indent=1))
     log(smi)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

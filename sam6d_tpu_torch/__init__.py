@@ -1,8 +1,9 @@
-"""PyTorch + CUDA port of the SAM-6D pose estimation model (PEM).
+"""PyTorch + CUDA port of SAM-6D: the ISM, the PEM, PEM training and the
+file demo (`pipeline/demo.py`).
 
 The package mirrors the layout of the JAX package `sam6d_tpu` (`ops/`,
-`models/vit.py`, `models/pem/...`, `pipeline/pem_runner.py`) but imports
-nothing from it: it is a standalone PyTorch program whose hot-path
+`models/`, `pipeline/`, `train/`, `utils/`) but imports nothing from it,
+nor JAX or PIL: it is a standalone PyTorch program whose hot-path
 kernels are hand-written CUDA C++ for Hopper (`csrc/`).
 
 Matmul precision is pinned explicitly: float32 matmuls and convolutions

@@ -79,6 +79,30 @@ def load_npz(path: str) -> dict:
         return {k: torch.from_numpy(data[k]) for k in data.files}
 
 
+def load_npz_tolerant(module: torch.nn.Module, path: str) -> list[str]:
+    """Load a `.npz` state dict without being strict: every entry whose
+    name and shape match one of the module's is taken, the module keeps
+    its own tensors elsewhere (the JAX package's
+    `restore_params_tolerant`, after the reference's fallback loader,
+    run_inference_custom_pytorch.py:393-420).  Raises if more than half
+    of the module's entries found no match: the file then almost
+    certainly belongs to another architecture.  Returns the names of the
+    entries that kept the module's values."""
+    ckpt = load_npz(path)
+    current = module.state_dict()
+    misses = [k for k, v in current.items()
+              if k not in ckpt or tuple(ckpt[k].shape) != tuple(v.shape)]
+    if current and len(misses) / len(current) > 0.5:
+        raise ValueError(
+            f"tolerant load of {path} matched only "
+            f"{len(current) - len(misses)}/{len(current)} entries; first "
+            f"misses: {misses[:8]}")
+    miss = set(misses)
+    module.load_state_dict({k: ckpt[k] if k not in miss else v
+                            for k, v in current.items()})
+    return misses
+
+
 # Leaves the JAX package draws from N(0, 1): SAM's prompt and decoder
 # tokens and its random Fourier features.
 _UNIT_NORMAL = ("positional_encoding_gaussian_matrix", "not_a_point_embed",

@@ -2,7 +2,7 @@
 
 Counterpart of `sam6d_tpu/utils/bbox.py` (reference Instance_Segmentation_
 Model/utils/bbox_utils.py: CropResizePad :89-126, xyxy_to_xywh :129,
-compute_iou :197; Pose_Estimation_Model/utils/data_utils.py:126-160).
+compute_iou :197; Pose_Estimation_Model/utils/data_utils.py:113-160).
 
 `resample_weights` is the weight matrix of `jax.image.scale_and_translate`
 with the triangle ("bilinear") kernel: it antialiases when it scales down
@@ -23,6 +23,13 @@ def xyxy_to_xywh(boxes: np.ndarray) -> np.ndarray:
     out = np.array(boxes, np.float32).copy()
     out[..., 2] = boxes[..., 2] - boxes[..., 0]
     out[..., 3] = boxes[..., 3] - boxes[..., 1]
+    return out
+
+
+def xywh_to_xyxy(boxes: np.ndarray) -> np.ndarray:
+    out = np.array(boxes, np.float32).copy()
+    out[..., 2] = boxes[..., 0] + boxes[..., 2]
+    out[..., 3] = boxes[..., 1] + boxes[..., 3]
     return out
 
 
@@ -152,3 +159,18 @@ def square_bbox(mask: np.ndarray) -> tuple[int, int, int, int]:
         cmin -= cmax - W
         cmax = W
     return int(rmin), int(rmax), int(cmin), int(cmax)
+
+
+def get_resize_rgb_choose(choose: np.ndarray, bbox: tuple[int, int, int, int],
+                          img_size: int) -> np.ndarray:
+    """Map in-crop flat pixel indices to indices in the crop resized to
+    img_size^2 (reference data_utils.py:113-123)."""
+    rmin, rmax, cmin, cmax = bbox
+    crop_h = rmax - rmin
+    crop_w = cmax - cmin
+    ratio_h = img_size / crop_h
+    ratio_w = img_size / crop_w
+    row_idx = choose // crop_w
+    col_idx = choose % crop_w
+    return (np.floor(row_idx * ratio_h) * img_size
+            + np.floor(col_idx * ratio_w)).astype(np.int64)

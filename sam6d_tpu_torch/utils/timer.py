@@ -3,7 +3,12 @@
 `StageTimer.stage(name)` brackets a block with CUDA events on the card
 (no synchronisation inside the run) or with the host clock on the CPU;
 `report()` synchronises once and returns milliseconds per stage, summed
-over repeats.  The pipelines take `timer=None` and then time nothing.
+over repeats.  The events time the device's queue: a stage's host work
+that overlaps the device work queued before it counts for nothing.  With
+`sync=True` each stage waits for its device work before its end event,
+so the events bracket the stage's wall time (the file demo, whose stages
+are host and device work in turn).  The pipelines take `timer=None` and
+then time nothing.
 """
 
 from __future__ import annotations
@@ -15,8 +20,9 @@ import torch
 
 
 class StageTimer:
-    def __init__(self, device):
+    def __init__(self, device, sync: bool = False):
         self.cuda = torch.device(device).type == "cuda"
+        self.sync = sync
         self._marks = []  # (name, start, end)
 
     @contextlib.contextmanager
@@ -26,6 +32,8 @@ class StageTimer:
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             yield
+            if self.sync:
+                torch.cuda.synchronize()
             end.record()
         else:
             start = time.perf_counter()

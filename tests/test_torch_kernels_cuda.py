@@ -577,3 +577,33 @@ def test_embedding_gradient_reaches_the_projections_through_k3(dev):
         # Fused on both devices; the diagonal's distance index differs
         # between the two devices' matmuls (see the test above): 1e-3.
         assert float((card[n] - w).norm() / w.norm()) <= 1e-3, n
+
+
+def test_demo_pem_stage_on_the_card(dev, tmp_path, monkeypatch):
+    """The demo's render and PEM stages on the card at the tiny PEM config:
+    the example scene's own detection gives one pose, through K1 (the
+    onboarding and the request) and K2."""
+    import json
+
+    from chip_smoke import tiny_pem_config, write_gt_detection
+    from sam6d_tpu_torch.pipeline import demo
+    from sam6d_tpu_torch.pipeline.make_example import make_example
+    from sam6d_tpu_torch.utils.png import read_png
+
+    cad = make_example(str(tmp_path))
+    write_gt_detection(str(tmp_path), str(tmp_path / "detection_ism.json"))
+    monkeypatch.setattr(demo, "default_pem_config", tiny_pem_config)
+    before = fps_mod.KERNEL.launches, ge.KERNEL.launches
+    demo.main(["--cad_path", cad, "--rgb_path", str(tmp_path / "rgb.png"),
+               "--depth_path", str(tmp_path / "depth.png"),
+               "--cam_path", str(tmp_path / "camera.json"),
+               "--output_dir", str(tmp_path), "--stages", "render,pem",
+               "--template_size", "96", "--device", "cuda"])
+    assert fps_mod.KERNEL.launches >= before[0] + 2
+    assert ge.KERNEL.launches > before[1]
+    rows = json.loads((tmp_path / "detection_pem.json").read_text())
+    assert len(rows) == 1
+    R = np.array(rows[0]["R"]).reshape(3, 3)
+    assert abs(np.linalg.det(R) - 1.0) < 1e-2
+    assert np.isfinite(rows[0]["t"]).all()
+    assert read_png(str(tmp_path / "vis_pem.png")).shape == (480, 640, 3)
