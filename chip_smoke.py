@@ -18,9 +18,10 @@ process per source, all at once), then:
    training shape also with the winners that K3 reads, both kernels fed
    the same winners; K7 on uniform, ball-query (also on a dense patch)
    and one-target indices, its bits held to the CPU's); plus the
-   tiny-config PEM template bank, a tiny-config ISM frame (float32) and
-   bfloat16 SAM-encoder and DINOv2 blocks at the full model's head dims
-   on the card against the same computed on the CPU;
+   tiny-config PEM template bank, a tiny-config ISM frame (float32), a
+   tiny FastSAM (the "n" scale at 160 px: head outputs and
+   generate_masks) and bfloat16 SAM-encoder and DINOv2 blocks at the full
+   model's head dims on the card against the same computed on the CPU;
 3. the PEM serving slice at full width (default_pem_config, bfloat16,
    random weights from a seed): onboarding of 42 views x 5000 points
    (FPS 210k -> 2048), the template bank, three 1-instance requests and
@@ -54,7 +55,23 @@ process per source, all at once), then:
    whose xyz lie on the cube's surface, BOP23 rows in
    detection_ism.json, one pose with |det R - 1| < 1e-2 and a finite t,
    a 480 x 640 vis_pem.png; K4, K5 and K6 launched in the ISM stage, K1
-   and K2 in each PEM stage.  The stage times (`StageTimer`) are printed.
+   and K2 in each PEM stage.  The stage times (`StageTimer`) are printed;
+7. released checkpoints reach the card: for FastSAM-x, MAE ViT-B,
+   the PEM base, DINOv2-L and SAM ViT-H, a checkpoint in the released
+   file's layout (tests/helpers/reference_checkpoints.py, from a numpy
+   seed) is written with torch.save, converted by
+   `python -m sam6d_tpu_torch.convert_weights` in a process of its own
+   (host-clock time and peak resident memory printed), and loaded into
+   its module with strict=True; SAM's decode_prompts runs on the
+   converted ViT-H embedding of phase 6's frame with a point, a box and
+   a mask prompt (finite (1, 4, 256, 256) logits); then `demo.main` with
+   `--segmentor_model fastsam` and the converted FastSAM, DINOv2 and PEM
+   weights runs the ism and pem stages on phase 6's scene and templates,
+   and the pem stage again on the scene's own detection.  Required:
+   FastSAM's masks at the frame's size, boxes inside it, finite; ISM
+   scores in [0, 1]; one pose with |det R - 1| < 1e-2; K5 launched in
+   the ISM stage, K1 and K2 in each PEM stage.  Stage times, proposal
+   counts and launches by stage are printed.
 
 Any failure exits non-zero.  The last lines are the nvidia-smi name and
 power limit, {"kernels": [...]}, and
@@ -809,6 +826,85 @@ def check_tiny_ism(dev):
         f"score err {score_err:.3g}")
 
 
+def tiny_fastsam(device):
+    """FastSAM at the "n" scale and 160 px, float32, random weights and
+    BatchNorm statistics from a seed; conf 0.3 and max_det 24 keep a
+    proposal set whose scores lie apart."""
+    import torch
+
+    from sam6d_tpu_torch.models.ism.fastsam import FastSAM
+    from sam6d_tpu_torch.models.layers import BatchNorm
+    from sam6d_tpu_torch.params import init_random_
+
+    fs = FastSAM(img_size=160, conf=0.3, max_det=24, scale="n", device="cpu")
+    g = torch.Generator().manual_seed(4)
+    init_random_(fs.net, g)
+    with torch.no_grad():
+        for m in fs.net.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape,
+                                                 generator=g) * 0.1)
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape,
+                                                     generator=g))
+    fs.net.to(device)
+    return fs
+
+
+def fastsam_with_probabilities(fs, image):
+    """fs.generate_masks(image) and the mask probabilities it composed
+    (None when no proposal passed)."""
+    from sam6d_tpu_torch.models.ism import fastsam
+
+    probs = []
+    compose = fastsam.mask_probabilities
+    fastsam.mask_probabilities = lambda *a: probs.append(compose(*a)) or probs[-1]
+    try:
+        out = fs.generate_masks(image)
+    finally:
+        fastsam.mask_probabilities = compose
+    return out, (probs[0].cpu().numpy() if probs else None)
+
+
+def check_tiny_fastsam(dev):
+    """The tiny FastSAM on the card (cuDNN convolutions, float32, TF32
+    off) against the same module on the CPU: the head outputs and
+    prototypes within 1e-4 (of order 1; summation order only), and
+    generate_masks on a 120 x 160 frame: the same proposals, boxes within
+    1e-3 px, masks equal except at pixels whose CPU probability lies
+    within 1e-4 of the 0.5 threshold (their count is printed)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.rand(1, 160, 160, 3).astype(np.float32))
+    image = (rng.rand(120, 160, 3) * 255).astype(np.uint8)
+    heads, results = [], []
+    for device in ("cpu", dev):
+        fs = tiny_fastsam(device)
+        with torch.no_grad():
+            outs, proto = fs.net(x.to(device))
+        heads.append([proto.cpu()] + [t.cpu() for lv in outs for t in lv])
+        results.append(fastsam_with_probabilities(fs, image))
+    head_err = max(float((g - c).abs().max()) for c, g in zip(*heads))
+    (cpu, probs), (gpu, _) = results
+    n = len(cpu["masks"])
+    require(n > 3 and gpu["masks"].shape == cpu["masks"].shape
+            and len(probs) == n,
+            f"tiny FastSAM: {len(gpu['masks'])} proposals on the card, {n} "
+            f"on the CPU")
+    box_err = float(np.abs(gpu["boxes"] - cpu["boxes"]).max())
+    differ = gpu["masks"] != cpu["masks"]
+    edge = float(np.abs(probs[differ] - 0.5).max()) if differ.any() else 0.0
+    require(head_err <= 1e-4 and box_err <= 1e-3 and edge < 1e-4,
+            f"tiny FastSAM: head err {head_err}, box err {box_err}, "
+            f"differing pixels {int(differ.sum())} up to {edge} from 0.5")
+    log(f"tiny FastSAM (n, 160 px) on the card matches the CPU: head err "
+        f"{head_err:.3g}, {n} proposals, box err {box_err:.3g} px, "
+        f"{int(differ.sum())} differing mask pixels")
+    return dict(head_max_abs_err=head_err, proposals=n,
+                box_max_abs_err=box_err, differing_pixels=int(differ.sum()))
+
+
 def check_tiny_bf16(dev):
     """The bfloat16 kernel instances that the full-width ISM launches,
     held to the CPU inside their modules: a 2-block SAM encoder with head
@@ -1533,11 +1629,39 @@ def phase_train(dev):
 
 
 
-def phase_demo(dev, smi: str):
+def counted_stages(demo, kernels, by_stage):
+    """Wrap the demo's stage functions so that each run adds its launches
+    of `kernels` to by_stage[stage] (a repeated stage as stage_gt); returns
+    a function that restores them."""
+    import torch
+
+    runs = {name: getattr(demo, f"run_{name}")
+            for name in ("render", "ism", "pem")}
+
+    def counted(name):
+        def run(args, timer):
+            before = {k.name: k.launches for k in kernels}
+            runs[name](args, timer)
+            torch.cuda.synchronize()
+            key = name if name not in by_stage else f"{name}_gt"
+            by_stage[key] = {k.name: k.launches - before[k.name]
+                             for k in kernels}
+        return run
+
+    for name in runs:
+        setattr(demo, f"run_{name}", counted(name))
+
+    def restore():
+        for name, fn in runs.items():
+            setattr(demo, f"run_{name}", fn)
+    return restore
+
+
+def phase_demo(dev, smi: str, tmp: Path):
     """Phase 6: the file demo, render -> ISM -> PEM through files, at the
-    full width of the default configs; see the module docstring."""
+    full width of the default configs, in `tmp`; see the module
+    docstring.  The scene and the rendered templates stay for phase 7."""
     import gc
-    import tempfile
 
     import numpy as np
     import torch
@@ -1555,88 +1679,72 @@ def phase_demo(dev, smi: str):
                    decode_tail.KERNEL]
     kernels = pem_kernels + ism_kernels
     by_stage = {}
-    runs = {name: getattr(demo, f"run_{name}")
-            for name in ("render", "ism", "pem")}
 
-    def counted(name):
-        def run(args, timer):
-            before = {k.name: k.launches for k in kernels}
-            runs[name](args, timer)
-            torch.cuda.synchronize()
-            key = name if name not in by_stage else f"{name}_gt"
-            by_stage[key] = {k.name: k.launches - before[k.name]
-                             for k in kernels}
-        return run
+    scene, out = tmp / "scene", tmp / "out"
+    cad = make_example(str(scene))
+    args = ["--cad_path", cad, "--rgb_path", str(scene / "rgb.png"),
+            "--depth_path", str(scene / "depth.png"),
+            "--cam_path", str(scene / "camera.json"),
+            "--output_dir", str(out), "--device", str(dev)]
+    restore = counted_stages(demo, kernels, by_stage)
+    try:
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        stages = demo.main(args + ["--stages", "render,ism,pem"])
+        wall_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        ism_rows = json.loads((out / "detection_ism.json").read_text())
+        first_pem = json.loads((out / "detection_pem.json").read_text())
+        write_gt_detection(str(scene), str(out / "detection_ism.json"))
+        t0 = time.perf_counter()
+        stages_gt = demo.main(args + ["--stages", "pem"])
+        wall_gt_s = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = {k.name: k.launches for k in kernels}
 
-    (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        scene, out = Path(tmp) / "scene", Path(tmp) / "out"
-        cad = make_example(str(scene))
-        args = ["--cad_path", cad, "--rgb_path", str(scene / "rgb.png"),
-                "--depth_path", str(scene / "depth.png"),
-                "--cam_path", str(scene / "camera.json"),
-                "--output_dir", str(out), "--device", str(dev)]
-        for name in runs:
-            setattr(demo, f"run_{name}", counted(name))
-        try:
-            for k in kernels:
-                k.launches = 0
-            t0 = time.perf_counter()
-            stages = demo.main(args + ["--stages", "render,ism,pem"])
-            wall_s = time.perf_counter() - t0
-            gc.collect()
-            torch.cuda.empty_cache()
-            ism_rows = json.loads((out / "detection_ism.json").read_text())
-            first_pem = json.loads((out / "detection_pem.json").read_text())
-            write_gt_detection(str(scene), str(out / "detection_ism.json"))
-            t0 = time.perf_counter()
-            stages_gt = demo.main(args + ["--stages", "pem"])
-            wall_gt_s = time.perf_counter() - t0
-        finally:
-            for name, fn in runs.items():
-                setattr(demo, f"run_{name}", fn)
-        launches = {k.name: k.launches for k in kernels}
-
-        tdir = out / "templates"
-        # The host's share of the onboarding stages: the template loaders
-        # alone (PNG decoding, crops, resizes), on the host's clock.
-        host_s = {}
-        for name, load in (
-                ("pem_load_all_templates",
-                 lambda: load_all_templates(str(tdir), default_pem_config())),
-                ("ism_load_template_crops",
-                 lambda: load_template_crops(str(tdir)))):
-            t0 = time.perf_counter()
-            load()
-            host_s[name] = time.perf_counter() - t0
-        surface_err = 0.0
-        for i in range(42):
-            mask = read_png(str(tdir / f"mask_{i}.png")) == 255
-            rgb = read_png(str(tdir / f"rgb_{i}.png"))
-            require(mask.any() and rgb.shape == (420, 420, 3),
-                    f"template {i}: empty mask or shape {rgb.shape}")
-            xyz = np.load(tdir / f"xyz_{i}.npy").astype(np.float32)[mask]
-            surface_err = max(surface_err, float(
-                np.abs(np.abs(xyz).max(axis=1) - 30.0).max()))
-        require(surface_err <= 2.0,
-                f"template xyz off the cube's surface by {surface_err} mm")
-        keys = {"scene_id", "image_id", "category_id", "bbox", "score",
-                "time", "segmentation"}
-        require(isinstance(ism_rows, list) and all(
-            set(r) == keys and 0.0 <= r["score"] <= 1.0
-            and r["segmentation"]["size"] == [480, 640] for r in ism_rows),
-            "detection_ism.json is not a list of BOP23 rows of the frame")
-        require(isinstance(first_pem, list), "detection_pem.json")
-        rows = json.loads((out / "detection_pem.json").read_text())
-        require(len(rows) == 1, f"{len(rows)} poses on the scene's object")
-        R = np.array(rows[0]["R"], np.float64).reshape(3, 3)
-        t = np.array(rows[0]["t"], np.float64)
-        det = float(np.linalg.det(R))
-        require(abs(det - 1.0) < 1e-2 and np.isfinite(t).all()
-                and np.isfinite(R).all(), f"pose: det R {det}, t {t}")
-        vis = read_png(str(out / "vis_pem.png"))
-        require(vis.shape == (480, 640, 3), f"vis_pem.png {vis.shape}")
-        gt = json.loads((scene / "gt_pose.json").read_text())
+    tdir = out / "templates"
+    # The host's share of the onboarding stages: the template loaders
+    # alone (PNG decoding, crops, resizes), on the host's clock.
+    host_s = {}
+    for name, load in (
+            ("pem_load_all_templates",
+             lambda: load_all_templates(str(tdir), default_pem_config())),
+            ("ism_load_template_crops",
+             lambda: load_template_crops(str(tdir)))):
+        t0 = time.perf_counter()
+        load()
+        host_s[name] = time.perf_counter() - t0
+    surface_err = 0.0
+    for i in range(42):
+        mask = read_png(str(tdir / f"mask_{i}.png")) == 255
+        rgb = read_png(str(tdir / f"rgb_{i}.png"))
+        require(mask.any() and rgb.shape == (420, 420, 3),
+                f"template {i}: empty mask or shape {rgb.shape}")
+        xyz = np.load(tdir / f"xyz_{i}.npy").astype(np.float32)[mask]
+        surface_err = max(surface_err, float(
+            np.abs(np.abs(xyz).max(axis=1) - 30.0).max()))
+    require(surface_err <= 2.0,
+            f"template xyz off the cube's surface by {surface_err} mm")
+    keys = {"scene_id", "image_id", "category_id", "bbox", "score",
+            "time", "segmentation"}
+    require(isinstance(ism_rows, list) and all(
+        set(r) == keys and 0.0 <= r["score"] <= 1.0
+        and r["segmentation"]["size"] == [480, 640] for r in ism_rows),
+        "detection_ism.json is not a list of BOP23 rows of the frame")
+    require(isinstance(first_pem, list), "detection_pem.json")
+    rows = json.loads((out / "detection_pem.json").read_text())
+    require(len(rows) == 1, f"{len(rows)} poses on the scene's object")
+    R = np.array(rows[0]["R"], np.float64).reshape(3, 3)
+    t = np.array(rows[0]["t"], np.float64)
+    det = float(np.linalg.det(R))
+    require(abs(det - 1.0) < 1e-2 and np.isfinite(t).all()
+            and np.isfinite(R).all(), f"pose: det R {det}, t {t}")
+    vis = read_png(str(out / "vis_pem.png"))
+    require(vis.shape == (480, 640, 3), f"vis_pem.png {vis.shape}")
+    gt = json.loads((scene / "gt_pose.json").read_text())
     for k in ism_kernels:
         require(by_stage["ism"][k.name] > 0,
                 f"{k.name} never ran in the demo's ISM stage")
@@ -1666,6 +1774,272 @@ def phase_demo(dev, smi: str):
                 surface_err_mm=surface_err, launches_by_stage=by_stage,
                 launches=launches)
 
+
+
+def released_modules():
+    """The port module each converter kind loads into, at the released
+    checkpoints' widths, on the CPU (zero weights)."""
+    import torch
+
+    from sam6d_tpu_torch.config import default_ism_config, default_pem_config
+    from sam6d_tpu_torch.models.ism.dinov2 import DescriptorModel
+    from sam6d_tpu_torch.models.ism.fastsam import FastSAM
+    from sam6d_tpu_torch.models.ism.sam.model import SAM
+    from sam6d_tpu_torch.models.pem.model import PEM
+    from sam6d_tpu_torch.models.vit import ViT
+
+    cfg = default_ism_config()
+    return {
+        "fastsam": lambda: FastSAM(scale=cfg.fastsam.scale,
+                                   device="cpu").net,  # FastSAM-x
+        "mae": lambda: ViT(),  # ViT-B/16 at 224
+        "pem": lambda: PEM(default_pem_config(), device="cpu"),
+        "dinov2": lambda: DescriptorModel(cfg.descriptor).vit,  # ViT-L/14
+        "sam": lambda: SAM("vit_h", dtype=torch.bfloat16, device="cpu"),
+    }
+
+
+# The converter's CLI as `python -m` runs it (runpy), with a thread that
+# samples the process's resident memory (/proc/self/statm) every 10 ms
+# and prints its peak in bytes, or -1 where statm cannot be read.  (The
+# rusage maximum of a child also counts the pages of the parent it was
+# forked from, and the card's machine has no VmHWM in /proc/self/status.)
+CONVERT_CLI = """import os, runpy, sys, threading, time
+peak = [0]
+def sample():
+    page = os.sysconf("SC_PAGE_SIZE")
+    while True:
+        try:
+            with open("/proc/self/statm") as f:
+                peak[0] = max(peak[0], int(f.read().split()[1]) * page)
+        except (OSError, IndexError, ValueError):
+            peak[0] = -1
+            return
+        time.sleep(0.01)
+threading.Thread(target=sample, daemon=True).start()
+sys.argv = ["convert_weights"] + sys.argv[1:]
+runpy.run_module("sam6d_tpu_torch.convert_weights", run_name="__main__")
+print(peak[0])
+"""
+
+
+def convert_cli(kind: str, ckpt: Path, out: Path):
+    """`python -m sam6d_tpu_torch.convert_weights` in a process of its
+    own: its wall time (host clock), its own timings line and its peak
+    resident memory (GiB)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CONVERT_CLI, "--kind", kind, "--ckpt",
+         str(ckpt), "--out", str(out)],
+        cwd=ROOT, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"convert_weights --kind {kind} exited "
+            f"with {proc.returncode}: {proc.stderr[-2000:]}")
+    said, peak = proc.stdout.strip().splitlines()[-2:]
+    return seconds, (int(peak) / 2 ** 30 if int(peak) > 0 else None), said
+
+
+def check_sam_prompts(sam, dev, image):
+    """SAM ViT-H on the converted weights: one frame's embedding (K4 in
+    every block), then SamPredictor's two calls: a point prompt, then the
+    point, a box and the best mask's logits as a mask prompt."""
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch.ops import flash_rpe
+
+    k4 = flash_rpe.KERNEL_RPE
+    before = k4.launches
+    with torch.no_grad():
+        img, scale, _ = sam.preprocess(torch.from_numpy(image).to(dev))
+        emb = sam.encode(img[None])
+        pts = torch.tensor([[[320.0, 240.0]]], device=dev) * scale
+        labels = torch.ones(1, 1, dtype=torch.long, device=dev)
+        logits, iou = sam.decode_prompts(emb, pts, labels)
+        box = torch.tensor([[240.0, 160.0, 400.0, 320.0]], device=dev) * scale
+        mask = logits[:, int(iou[0].argmax())][..., None]
+        logits, iou = sam.decode_prompts(emb, pts, labels, box, mask)
+        torch.cuda.synchronize()
+    out = logits.float().cpu().numpy()
+    h, w = emb.shape[1:3]  # 64 x 64 for ViT-H at 1024
+    require(out.shape == (1, 4, 4 * h, 4 * w) and np.isfinite(out).all()
+            and np.isfinite(iou.float().cpu().numpy()).all(),
+            f"decode_prompts: logits {out.shape}, finite "
+            f"{np.isfinite(out).all()}")
+    require(k4.launches - before == 32,
+            f"the ViT-H encoder launched K4 {k4.launches - before} times")
+    return dict(logits_shape=list(out.shape), k4_launches=32,
+                logits_abs_max=float(np.abs(out).max()))
+
+
+def phase_weights(dev, smi: str, tmp: Path):
+    """Phase 7: released-layout checkpoints through the converter's CLI,
+    strict loads, SAM's prompts on the converted ViT-H, and the FastSAM
+    demo on phase 6's scene and templates; see the module docstring."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch.models.ism.detector import ISMDetector
+    from sam6d_tpu_torch.models.ism.fastsam import FastSAM
+    from sam6d_tpu_torch.models.layers import cast_dense_weights
+    from sam6d_tpu_torch.ops import flash_rpe, fps, geo_embed
+    from sam6d_tpu_torch.params import load_npz
+    from sam6d_tpu_torch.pipeline import demo
+    from sam6d_tpu_torch.utils.png import read_png
+    from sam6d_tpu_torch.utils.timer import StageTimer
+
+    rc = load_helper("reference_checkpoints")
+    wdir = tmp / "weights"
+    wdir.mkdir()
+    conversions, npz, sam = {}, {}, None
+    for seed, (kind, build) in enumerate(released_modules().items()):
+        module = build()
+        shapes = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+        t0 = time.perf_counter()
+        ref = rc.reference_state_dict(kind, shapes, seed=10 + seed)
+        ckpt, npz[kind] = wdir / f"{kind}.pth", wdir / f"{kind}.npz"
+        torch.save(rc.checkpoint(kind, {k: torch.from_numpy(v)
+                                        for k, v in ref.items()}), ckpt)
+        n_ref = len(ref)
+        del ref
+        write_s = time.perf_counter() - t0
+        ckpt_gb = ckpt.stat().st_size / 1e9
+        seconds, rss_gib, said = convert_cli(kind, ckpt, npz[kind])
+        ckpt.unlink()
+        t0 = time.perf_counter()
+        state = load_npz(str(npz[kind]))
+        module.load_state_dict(state)  # strict: no missing, no unexpected
+        load_s = time.perf_counter() - t0
+        conversions[kind] = dict(
+            convert_s=seconds, cli_said=said, peak_rss_gib=rss_gib,
+            checkpoint_gb=ckpt_gb,
+            npz_gb=npz[kind].stat().st_size / 1e9, tensors_in=n_ref,
+            tensors_out=len(state), synthesize_and_save_s=write_s,
+            strict_load_s=load_s)
+        if kind == "sam":
+            require(sum(k.startswith("prompt.mask_downscaling")
+                        for k in state) == 10,
+                    "the SAM file lacks the mask-downscaling weights")
+            sam = module
+        del module, state
+        gc.collect()
+        log(f"convert {kind}: {seconds:.2f} s (host clock, a process of its "
+            f"own), peak resident memory "
+            f"{'not measured' if rss_gib is None else f'{rss_gib:.2f} GiB'}, "
+            f"checkpoint {ckpt_gb:.3f} GB "
+            f"({n_ref} tensors) -> {conversions[kind]['tensors_out']} "
+            f"tensors, strict load {load_s:.2f} s; the CLI: {said}")
+
+    scene, out6 = tmp / "scene", tmp / "out"
+    image = read_png(str(scene / "rgb.png"))[..., :3]
+    sam = cast_dense_weights(sam.to(dev).eval())
+    prompts = check_sam_prompts(sam, dev, image)
+    del sam
+    npz["sam"].unlink()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"SAM ViT-H decode_prompts (point, box, mask) on the converted "
+        f"weights: {prompts}")
+
+    # The demo with FastSAM, on phase 6's scene and templates (not its
+    # descriptor cache, which holds other weights' descriptors).
+    out = tmp / "out_fastsam"
+    shutil.copytree(out6 / "templates", out / "templates",
+                    ignore=shutil.ignore_patterns("descriptors.npz"))
+    args = ["--cad_path", str(scene / "obj_example.ply"),
+            "--rgb_path", str(scene / "rgb.png"),
+            "--depth_path", str(scene / "depth.png"),
+            "--cam_path", str(scene / "camera.json"),
+            "--output_dir", str(out), "--device", str(dev),
+            "--segmentor_model", "fastsam",
+            "--fastsam_params", str(npz["fastsam"]),
+            "--dinov2_params", str(npz["dinov2"]),
+            "--pem_params", str(npz["pem"])]
+    kernels = [flash_rpe.KERNEL_PLAIN, fps.KERNEL, geo_embed.KERNEL]
+    by_stage, seen = {}, {}
+    generate, detect = FastSAM.generate_masks, ISMDetector.detect
+
+    def recording_generate(self, image, timer=None):
+        # FastSAM's own stages, each waiting for its device work.
+        stages = StageTimer(self.device, sync=True)
+        seen["proposals"] = generate(self, image, timer=stages)
+        seen["fastsam_ms"] = stages.report()
+        return seen["proposals"]
+
+    def recording_detect(self, *a, **k):
+        dets = detect(self, *a, **k)
+        seen["counts"] = dict(self.last_counts)
+        return dets
+
+    FastSAM.generate_masks = recording_generate
+    ISMDetector.detect = recording_detect
+    restore = counted_stages(demo, kernels, by_stage)
+    try:
+        for k in all_kernels():
+            k.launches = 0
+        t0 = time.perf_counter()
+        stages = demo.main(args + ["--stages", "ism,pem"])
+        wall_s = time.perf_counter() - t0
+        ism_rows = json.loads((out / "detection_ism.json").read_text())
+        first_pem = json.loads((out / "detection_pem.json").read_text())
+        write_gt_detection(str(scene), str(out / "detection_ism.json"))
+        t0 = time.perf_counter()
+        stages_gt = demo.main(args + ["--stages", "pem"])
+        wall_gt_s = time.perf_counter() - t0
+    finally:
+        restore()
+        FastSAM.generate_masks, ISMDetector.detect = generate, detect
+    launches = {k.name: k.launches for k in all_kernels()}
+
+    p = seen["proposals"]
+    n = len(p["masks"])
+    b = p["boxes"]
+    require(n > 0 and p["masks"].shape == (n, 480, 640)
+            and p["masks"].dtype == bool and b.shape == (n, 4)
+            and np.isfinite(b).all() and (b >= 0).all()
+            and (b[:, 0::2] <= 639).all() and (b[:, 1::2] <= 479).all(),
+            f"FastSAM proposals: masks {p['masks'].shape}, boxes {b.shape}")
+    require(all(0.0 <= r["score"] <= 1.0
+                and r["segmentation"]["size"] == [480, 640]
+                for r in ism_rows), "ISM scores outside [0, 1]")
+    require(isinstance(first_pem, list), "detection_pem.json")
+    rows = json.loads((out / "detection_pem.json").read_text())
+    require(len(rows) == 1, f"{len(rows)} poses on the scene's object")
+    R = np.array(rows[0]["R"], np.float64).reshape(3, 3)
+    t = np.array(rows[0]["t"], np.float64)
+    det = float(np.linalg.det(R))
+    require(abs(det - 1.0) < 1e-2 and np.isfinite(t).all()
+            and np.isfinite(R).all(), f"pose: det R {det}, t {t}")
+    require(by_stage["ism"][flash_rpe.KERNEL_PLAIN.name] > 0,
+            "K5 never ran in the FastSAM demo's ISM stage")
+    for stage in ("pem", "pem_gt"):
+        for k in (fps.KERNEL, geo_embed.KERNEL):
+            require(by_stage[stage][k.name] > 0,
+                    f"{k.name} never ran in the FastSAM demo's {stage} stage")
+    for f in npz.values():
+        if f.exists():
+            f.unlink()
+    log(smi)
+    log("FastSAM demo stage times (ms, StageTimer, ism,pem): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stages.items()) + f"; wall {wall_s:.1f} s")
+    log("FastSAM demo stage times (ms, StageTimer, pem on the scene's "
+        "object): " + ", ".join(f"{k} {v:.1f}" for k, v in stages_gt.items())
+        + f"; wall {wall_gt_s:.1f} s")
+    log("FastSAM generate_masks stages in the demo (ms, StageTimer): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seen["fastsam_ms"].items()))
+    log(f"FastSAM demo: proposal counts {seen['counts']}, {len(ism_rows)} "
+        f"ISM detections, {len(first_pem)} poses; on the scene's object "
+        f"det R {det:.6f}; launches by stage {by_stage}")
+    return dict(conversions=conversions, sam_prompts=prompts,
+                stages_ms=stages, stages_gt_ms=stages_gt, wall_s=wall_s,
+                wall_gt_s=wall_gt_s, proposal_counts=seen["counts"],
+                fastsam_stages_ms=seen["fastsam_ms"],
+                ism_detections=len(ism_rows), poses=len(first_pem),
+                pose_gt=dict(R=R.tolist(), t_mm=t.tolist()),
+                launches_by_stage=by_stage, launches=launches)
 
 def main():
     import torch
@@ -1697,6 +2071,7 @@ def main():
     scatter_rows_ = check_scatter_rows(dev)
     check_tiny_bank(dev)
     check_tiny_ism(dev)
+    tiny_fs = check_tiny_fastsam(dev)
     tiny_bf16 = check_tiny_bf16(dev)
     tiny_train = check_tiny_train_step(dev)
     log("== phase 3: PEM serving slice at full width")
@@ -1715,8 +2090,17 @@ def main():
 
     gc.collect()
     torch.cuda.empty_cache()
-    log("== phase 6: the file demo (render -> ISM -> PEM) at full width")
-    demo_run = phase_demo(dev, smi)
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        log("== phase 6: the file demo (render -> ISM -> PEM) at full width")
+        demo_run = phase_demo(dev, smi, Path(tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== phase 7: released-layout checkpoints through the converter, "
+            "and the FastSAM demo, at full width")
+        weights = phase_weights(dev, smi, Path(tmp))
 
     def entry(kernel, rows, main_row, launches, library=None):
         main = rows[main_row]
@@ -1733,6 +2117,7 @@ def main():
             "library_ms": main.get("library_ms"),
             "library": library, "shape": main["shape"], "by_shape": rows,
             "launches_demo": demo_run["launches"].get(kernel.name, 0),
+            "launches_fastsam_demo": weights["launches"][kernel.name],
         }
 
     # Main rows: FPS of one instance (2048 -> 196) and the bf16 embedding
@@ -1772,7 +2157,8 @@ def main():
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": build_s, "ptxas": ptxas, "tiny_bf16": tiny_bf16, "tiny_train": tiny_train,
-         "slice": sl, "ism": ism, "train": train, "demo": demo_run,
+         "tiny_fastsam": tiny_fs, "slice": sl, "ism": ism, "train": train,
+         "demo": demo_run, "weights": weights,
          **report}, indent=1))
     log(smi)
     print(json.dumps(report))

@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of SAM-6D: the ISM, the PEM, PEM training and the
-file demo (`pipeline/demo.py`).
+"""PyTorch + CUDA port of SAM-6D: the ISM (SAM or FastSAM), the PEM, PEM
+training, the file demo (`pipeline/demo.py`) and the converter of
+released checkpoints (`convert_weights.py`).
 
 The package mirrors the layout of the JAX package `sam6d_tpu` (`ops/`,
 `models/`, `pipeline/`, `train/`, `utils/`) but imports nothing from it,

@@ -196,8 +196,8 @@ class SegmentorConfig:
 
 @dataclass(frozen=True)
 class FastSAMConfig:
-    """FastSAM (YOLOv8-seg) proposal-generation settings (the segmentor
-    itself is not ported yet).
+    """FastSAM (YOLOv8-seg) proposal-generation settings
+    (`models/ism/fastsam.py`; `demo --segmentor_model fastsam`).
 
     Reference: Instance_Segmentation_Model/configs/model/segmentor_model/
     fast_sam.yaml + model/fast_sam.py CustomYOLO overrides.

@@ -25,6 +25,7 @@ import torch
 
 from sam6d_tpu_torch.config import SegmentorConfig
 from sam6d_tpu_torch.ops.decode_tail import decode_tail_stats, fold_stats
+from sam6d_tpu_torch.ops.topk import top_k_indices
 from sam6d_tpu_torch.utils.bbox import pil_bilinear_resize, resize_matrix
 from sam6d_tpu_torch.utils.detections import nms
 from sam6d_tpu_torch.utils.timer import stage
@@ -137,10 +138,6 @@ class SamAutomaticMaskGenerator:
                 "boxes": boxes[nonempty].astype(np.float32)}
 
 
-def _top_k(score, top_k: int):
-    return torch.topk(score, min(top_k, score.shape[0])).indices
-
-
 def _decode_and_filter_all(embedding, points, *, sam, points_per_batch: int,
                            mask_threshold: float, stability_offset: float,
                            top_k: int):
@@ -159,7 +156,7 @@ def _decode_and_filter_all(embedding, points, *, sam, points_per_batch: int,
     iou = torch.cat(iou).reshape(-1)
     stability = calculate_stability_score(logits, mask_threshold,
                                           stability_offset)
-    keep = _top_k(iou + 1e-3 * stability, top_k)
+    keep = top_k_indices(iou + 1e-3 * stability, top_k)
     logits_k = logits[keep]
     boxes_k = mask_to_box(logits_k > mask_threshold) * (sam.input_size / h)
     return logits_k, iou[keep], stability[keep], boxes_k
@@ -189,7 +186,7 @@ def _decode_and_filter_fused(embedding, points, *, sam,
     stability, boxes, _ = fold_stats(stats, sam.input_size / (4 * h))
     stability = stability.reshape(-1)
     boxes = boxes.reshape(-1, 4)
-    keep = _top_k(iou + 1e-3 * stability, top_k)
+    keep = top_k_indices(iou + 1e-3 * stability, top_k)
     prompt_idx, tok = keep // 3, keep % 3
     logits_k = sam.decode_tail(keys[prompt_idx],
                                hyper3[prompt_idx, tok][:, None], h, h)[:, 0]

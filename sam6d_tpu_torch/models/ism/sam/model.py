@@ -47,7 +47,8 @@ class SAM(nn.Module):
         kwargs.update(encoder_kwargs or {})
         self.encoder = ImageEncoderViT(**kwargs)
         emb = img_size // kwargs.get("patch_size", 16)
-        self.prompt = PromptEncoder(256, (emb, emb), (img_size, img_size))
+        self.prompt = PromptEncoder(256, (emb, emb), (img_size, img_size),
+                                    dtype=dtype)
         self.decoder = MaskDecoder(dtype=dtype)
         self.dtype = dtype
         self.input_size = img_size
@@ -85,6 +86,17 @@ class SAM(nn.Module):
         """points (B, 1, 2) in input coordinates -> ((B, 4, 4h, 4w) mask
         logits, (B, 4) predicted IoUs)."""
         pe, sparse, dense = self._prompt_inputs(points)
+        return self.decoder(embedding, pe, sparse, dense)
+
+    def decode_prompts(self, embedding, points, labels, boxes=None,
+                       masks=None):
+        """SamPredictor-style decode with the full prompt set (reference
+        predictor.py predict_torch): points (B, N, 2) in input
+        coordinates and labels (B, N), optional boxes (B, 4) xyxy and
+        low-resolution mask logits (B, 4h, 4w, 1) -> ((B, 4, 4h, 4w) mask
+        logits, (B, 4) predicted IoUs).  The embedding stays at batch 1;
+        with a mask prompt the image side takes batch B."""
+        sparse, dense, pe = self.prompt(points, labels, boxes, masks)
         return self.decoder(embedding, pe, sparse, dense)
 
     def decode_points_pre(self, embedding, points):

@@ -47,7 +47,7 @@ class LayerNorm(nn.LayerNorm):
 
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis, flax's `nn.BatchNorm(momentum=0.9,
-    epsilon=1e-5)`.
+    epsilon=1e-5)` by default (FastSAM's are momentum 0.97, epsilon 1e-3).
 
     Eval (`train=False`) normalises with the running statistics.  Train
     normalises with the batch statistics over every other axis, in
@@ -58,15 +58,15 @@ class BatchNorm(nn.Module):
     convention, so it is not used.)  Each train call makes one update, in
     call order."""
 
-    momentum = 0.9
-
-    def __init__(self, dim: int, dtype=torch.float32, eps: float = 1e-5):
+    def __init__(self, dim: int, dtype=torch.float32, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
         self.eps = eps
+        self.momentum = momentum
         self.dtype = dtype
 
     def forward(self, x, train: bool = False):

@@ -1,38 +1,53 @@
 """PEM feature extraction: MAE ViT pyramid features -> per-pixel features
 gathered at the observed / template pixels.
 
-Counterpart of `sam6d_tpu/models/pem/feature_extraction.py` with the
-linear upscaling head.  `choose` indexes the row-major flattened H*W
-pixel grid of the crop.
+Counterpart of `sam6d_tpu/models/pem/feature_extraction.py`, with both
+upscaling heads (`ViTConfig.up_type` "linear" and "deconv").  `choose`
+indexes the row-major flattened H*W pixel grid of the crop.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sam6d_tpu_torch.config import ViTConfig
-from sam6d_tpu_torch.models.layers import Dense
+from sam6d_tpu_torch.models.layers import Dense, LayerNorm
 from sam6d_tpu_torch.models.vit import ViT
 from sam6d_tpu_torch.ops.fps import sample_pts_feats
 from sam6d_tpu_torch.ops.pointcloud import batched_row_gather
 
 
 class ViTAE(nn.Module):
-    """ViT backbone + linear head: each patch token predicts a 4x4 grid
-    of out_dim pixels (reference feature_extraction.py:109-112)."""
+    """ViT backbone + an upscaling head from each patch token to a 4x4
+    grid of out_dim pixels.
+
+    * "linear" (reference feature_extraction.py:109-112): one Dense.
+    * "deconv" (reference :66-74): ConvTranspose(k2 s2) -> LayerNorm2d ->
+      GELU -> ConvTranspose(k2 s2).  A ConvTranspose with kernel =
+      stride = 2 is a per-pixel Dense whose output holds the 2x2 block in
+      its channels, so both stages stay in that block-channel form (the
+      first nests (a, b, 2C), the second (c, d, C)) and one shuffle at the
+      end puts pixel (a, b, c, d) of patch (i, j) at row i*4 + a*2 + c,
+      column j*4 + b*2 + d, as the JAX package does."""
 
     def __init__(self, cfg: ViTConfig, dtype=torch.float32):
         super().__init__()
-        if cfg.up_type != "linear":
+        if cfg.up_type not in ("linear", "deconv"):
             raise NotImplementedError(f"up_type {cfg.up_type}")
         self.cfg = cfg
         self.vit = ViT(cfg.patch_size, cfg.embed_dim, cfg.depth,
                        cfg.num_heads, cfg.mlp_ratio, cfg.img_size, dtype,
                        remat=cfg.remat)
         n_taps = 4 if cfg.use_pyramid_feat else 1
-        self.output_upscaling = Dense(n_taps * cfg.embed_dim,
-                                      16 * cfg.out_dim, dtype=dtype)
+        d_in, C = n_taps * cfg.embed_dim, cfg.out_dim
+        if cfg.up_type == "linear":
+            self.output_upscaling = Dense(d_in, 16 * C, dtype=dtype)
+        else:
+            self.upscale_deconv1 = Dense(d_in, 4 * 2 * C, dtype=dtype)
+            self.upscale_ln = LayerNorm(2 * C, dtype)
+            self.upscale_deconv2 = Dense(2 * C, 4 * C, dtype=dtype)
 
     def forward(self, x):
         """x (B, H, W, 3) -> ((B, 4H/p, 4W/p, out_dim) map, (B, D) cls).
@@ -46,10 +61,17 @@ class ViTAE(nn.Module):
         patch_taps = [t[:, 1:, :] for t in taps]
         feats = (torch.cat(patch_taps, dim=-1) if cfg.use_pyramid_feat
                  else patch_taps[-1])
-        hp = H // cfg.patch_size
-        y = self.output_upscaling(feats)
-        y = y.reshape(B, hp, hp, 4, 4, cfg.out_dim).permute(0, 1, 3, 2, 4, 5)
-        return y.reshape(B, hp * 4, hp * 4, cfg.out_dim), cls_tokens
+        hp, C = H // cfg.patch_size, cfg.out_dim
+        if cfg.up_type == "linear":
+            y = self.output_upscaling(feats)
+            y = y.reshape(B, hp, hp, 4, 4, C).permute(0, 1, 3, 2, 4, 5)
+            return y.reshape(B, hp * 4, hp * 4, C), cls_tokens
+        y = self.upscale_deconv1(feats).reshape(B, hp, hp, 2, 2, 2 * C)
+        y = self.upscale_deconv2(F.gelu(self.upscale_ln(y)))
+        # (i, j, a, b, c, d, C) -> rows i*4 + a*2 + c, cols j*4 + b*2 + d.
+        y = y.reshape(B, hp, hp, 2, 2, 2, 2, C)
+        y = y.permute(0, 1, 3, 5, 2, 4, 6, 7)
+        return y.reshape(B, hp * 4, hp * 4, C), cls_tokens
 
 
 class ViTEncoder(nn.Module):

@@ -14,7 +14,9 @@ The port's submodules carry the flax names, so a flax leaf
 
 `sam_state_dict` maps the JAX SAM's three trees (encoder, prompt,
 decoder) at once; the DINOv2 tree maps as it is, into
-`DescriptorModel.vit`.
+`DescriptorModel.vit`, and FastSAM's (`params` and `batch_stats`) into
+`FastSAM.net`.  `convert_weights.py` writes the same state dicts from
+the released torch checkpoints.
 
 The input is a nested dict of numpy arrays (for example
 `jax.tree.map(np.asarray, variables)`); this module imports no JAX.
@@ -57,16 +59,10 @@ def flax_to_state_dict(variables) -> dict:
 def sam_state_dict(variables) -> dict:
     """The JAX SAM's {"encoder", "prompt", "decoder"} variable trees ->
     the port `SAM`'s state dict (`encoder.*`, `prompt.*`, `decoder.*`).
-    4-D conv kernels (neck, ConvTranspose) keep their (kh, kw, C, O)
-    layout.  The prompt encoder's `mask_downscaling_*` weights belong to
-    the mask-prompt path, which is not ported, and are left out."""
-    out = {}
-    for part, tree in variables.items():
-        for key, val in flax_to_state_dict(tree).items():
-            if part == "prompt" and key.startswith("mask_downscaling"):
-                continue
-            out[f"{part}.{key}"] = val
-    return out
+    4-D conv kernels (neck, mask downscaling, ConvTranspose) keep their
+    (kh, kw, C, O) layout."""
+    return {f"{part}.{key}": val for part, tree in variables.items()
+            for key, val in flax_to_state_dict(tree).items()}
 
 
 def save_npz(state_dict, path: str) -> None:

@@ -12,12 +12,16 @@ Usage:
       --cam_path camera.json --output_dir out [--stages render,ism,pem] \\
       [--device cuda|cpu]
 
+The ISM's segmentor is SAM's automatic mask generator, or FastSAM with
+`--segmentor_model fastsam` (`cfg.fastsam`: FastSAM-x at 640 px).
 Weights are drawn at random from fixed seeds unless `--sam_params`,
-`--dinov2_params` or `--pem_params` give the port's `.npz` state dicts
-(`params.save_npz`; from a JAX variable tree through
-`params.sam_state_dict` or `params.flax_to_state_dict`).  The ISM runs in
-the config's compute dtype (bfloat16), the PEM in float32, as in the JAX
-demo.
+`--fastsam_params`, `--dinov2_params` or `--pem_params` give the port's
+`.npz` state dicts: `python -m sam6d_tpu_torch.convert_weights` writes
+them from the released checkpoints (or `params.save_npz` of a bridged
+JAX variable tree).  FastSAM's load is strict; the others are tolerant
+(`params.load_npz_tolerant`), as in the JAX demo.  The ISM runs in the
+config's compute dtype (bfloat16) and FastSAM in float32, the PEM in
+float32, as in the JAX demo.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from sam6d_tpu_torch.config import default_ism_config, default_pem_config
 from sam6d_tpu_torch.device import resolve_device
+from sam6d_tpu_torch.models.ism.fastsam import FastSAM
 from sam6d_tpu_torch.models.ism.sam.model import SAM
 from sam6d_tpu_torch.utils.timer import StageTimer
 
@@ -49,7 +54,11 @@ def run_ism(args, timer: StageTimer):
     from sam6d_tpu_torch.models.ism.onboarding import onboard_objects
     from sam6d_tpu_torch.models.ism.sam.amg import SamAutomaticMaskGenerator
     from sam6d_tpu_torch.models.layers import cast_dense_weights
-    from sam6d_tpu_torch.params import init_random_, load_npz_tolerant
+    from sam6d_tpu_torch.params import (
+        init_random_,
+        load_npz,
+        load_npz_tolerant,
+    )
     from sam6d_tpu_torch.pipeline.pem_data import read_depth
     from sam6d_tpu_torch.utils.detections import save_json_bop23
     from sam6d_tpu_torch.utils.mesh import load_mesh
@@ -62,12 +71,21 @@ def run_ism(args, timer: StageTimer):
     dev = args.device
     dtype = getattr(torch, cfg.compute_dtype)
     with timer.stage("ism_model_init"):
-        sam = SAM(cfg.segmentor.model_type, dtype=dtype, device=dev)
-        init_random_(sam, torch.Generator().manual_seed(0))
-        if args.sam_params:
-            load_npz_tolerant(sam, args.sam_params)
-        segmentor = SamAutomaticMaskGenerator(
-            cast_dense_weights(sam.eval()), cfg.segmentor)
+        if args.segmentor_model == "fastsam":
+            f = cfg.fastsam
+            segmentor = FastSAM(img_size=f.img_size, conf=f.conf_threshold,
+                                iou=f.iou_threshold, max_det=f.max_det,
+                                scale=f.scale, device=dev)
+            init_random_(segmentor.net, torch.Generator().manual_seed(0))
+            if args.fastsam_params:
+                segmentor.net.load_state_dict(load_npz(args.fastsam_params))
+        else:
+            sam = SAM(cfg.segmentor.model_type, dtype=dtype, device=dev)
+            init_random_(sam, torch.Generator().manual_seed(0))
+            if args.sam_params:
+                load_npz_tolerant(sam, args.sam_params)
+            segmentor = SamAutomaticMaskGenerator(
+                cast_dense_weights(sam.eval()), cfg.segmentor)
         descriptor = DescriptorModel(cfg.descriptor, dtype=dtype).to(dev)
         init_random_(descriptor, torch.Generator().manual_seed(1))
         if args.dinov2_params:
@@ -146,24 +164,22 @@ def main(argv=None) -> dict:
     p.add_argument("--segmentor_model", default="sam",
                    choices=["sam", "fastsam"])
     p.add_argument("--fastsam_params", default="",
-                   help="FastSAM weights (the segmentor is not ported yet)")
+                   help=".npz state dict of FastSAM (convert_weights "
+                        "--kind fastsam), loaded strictly")
     p.add_argument("--pem_params", default="",
-                   help=".npz state dict of the PEM (params.save_npz)")
+                   help=".npz state dict of the PEM (convert_weights "
+                        "--kind pem)")
     p.add_argument("--sam_params", default="",
-                   help=".npz state dict of SAM (params.sam_state_dict)")
+                   help=".npz state dict of SAM (convert_weights --kind sam)")
     p.add_argument("--dinov2_params", default="",
-                   help=".npz state dict of the DINOv2 ViT "
-                        "(params.flax_to_state_dict)")
+                   help=".npz state dict of the DINOv2 ViT (convert_weights "
+                        "--kind dinov2)")
     p.add_argument("--det_score_thresh", type=float, default=0.2)
     p.add_argument("--template_size", type=int, default=420)
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
     args = p.parse_args(argv)
     stages = args.stages.split(",")
-    if "ism" in stages and args.segmentor_model == "fastsam":
-        raise NotImplementedError(
-            "--segmentor_model fastsam: FastSAM is not ported to the "
-            "PyTorch package yet (ROADMAP item B6); use sam")
     args.device = resolve_device(args.device)
 
     os.makedirs(args.output_dir, exist_ok=True)

@@ -12,13 +12,19 @@
 * `demo.main(..., "--device", "cpu")` with the port's configs replaced by
   the tiny ones writes every artifact, and its PEM stage also runs on the
   scene's ground-truth detection.
+* The same with `--segmentor_model fastsam` (FastSAM-n at 160 px) on
+  weights that the converter's CLI wrote from an ultralytics-layout
+  checkpoint; FastSAM against the JAX package: test_torch_fastsam.py.
+  Weights that do not fit FastSAM are refused (its load is strict).
 """
 
 import dataclasses
 import functools
 import json
 import os
+import pathlib
 import shutil
+import sys
 
 import jax
 import numpy as np
@@ -34,12 +40,15 @@ from sam6d_tpu.models.ism.onboarding import onboard_objects as j_onboard
 from sam6d_tpu.models.ism.sam.amg import SamAutomaticMaskGenerator as JAMG
 from sam6d_tpu.models.ism.sam.model import SAM as JSAM
 from sam6d_tpu.utils.mesh import load_mesh
+from sam6d_tpu_torch import convert_weights
 from sam6d_tpu_torch.models.ism.detector import ISMDetector as TDetector
 from sam6d_tpu_torch.models.ism.dinov2 import DescriptorModel as TDesc
 from sam6d_tpu_torch.models.ism.onboarding import onboard_objects as t_onboard
 from sam6d_tpu_torch.models.ism.sam.amg import SamAutomaticMaskGenerator as TAMG
+from sam6d_tpu_torch.models.ism.fastsam import FastSAM as TFastSAM
 from sam6d_tpu_torch.models.ism.sam.model import SAM as TSAM
-from sam6d_tpu_torch.params import flax_to_state_dict, sam_state_dict
+from sam6d_tpu_torch.models.pem.model import PEM as TPEM
+from sam6d_tpu_torch.params import flax_to_state_dict, sam_state_dict, save_npz
 from sam6d_tpu_torch.pipeline import demo
 from sam6d_tpu_torch.pipeline.make_example import make_cube_mesh, make_example
 from sam6d_tpu_torch.pipeline.make_example import write_ply
@@ -58,6 +67,9 @@ from tests.test_torch_ism import (
     seg_kwargs,
 )
 from tests.test_torch_pem import tiny_config
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "helpers"))
+from reference_checkpoints import checkpoint, reference_state_dict  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -183,10 +195,71 @@ def test_demo_main_on_the_cpu_writes_every_artifact(scene, tmp_path,
     assert np.isfinite(pem[0]["t"]).all()
 
 
+def tiny_fastsam_ism_config():
+    return dataclasses.replace(
+        tiny_ism_config(), fastsam=tc.FastSAMConfig(scale="n", img_size=160))
+
+
+def fastsam_npz(tmp_path):
+    """FastSAM-n weights through the converter's CLI, from a checkpoint in
+    the ultralytics layout."""
+    shapes = {k: tuple(v.shape) for k, v in
+              TFastSAM(scale="n", device="cpu").net.state_dict().items()}
+    ref = reference_state_dict("fastsam", shapes, seed=5)
+    ckpt, out = tmp_path / "FastSAM-n.pt", tmp_path / "fastsam.npz"
+    torch.save(checkpoint("fastsam", {k: torch.from_numpy(v)
+                                      for k, v in ref.items()}), ckpt)
+    convert_weights.main(["--kind", "fastsam", "--ckpt", str(ckpt),
+                          "--out", str(out)])
+    return str(out)
+
+
+def test_demo_main_with_fastsam_on_the_cpu(scene, tmp_path, monkeypatch):
+    monkeypatch.setattr(demo, "default_ism_config", tiny_fastsam_ism_config)
+    monkeypatch.setattr(demo, "default_pem_config",
+                        lambda: dataclasses.replace(
+                            tiny_config(tc), n_sample_template_point=500))
+    proposals = []
+    generate = TFastSAM.generate_masks
+    monkeypatch.setattr(TFastSAM, "generate_masks", lambda self, *a, **k: (
+        proposals.append(generate(self, *a, **k)) or proposals[-1]))
+    d, out = scene["dir"], tmp_path / "out"
+    shutil.copytree(scene["tdir"], out / "templates")  # the render stage's
+    args = ["--cad_path", scene["cad"], "--rgb_path", str(d / "rgb.png"),
+            "--depth_path", str(d / "depth.png"),
+            "--cam_path", str(d / "camera.json"), "--output_dir", str(out),
+            "--template_size", "96", "--det_score_thresh", "-1",
+            "--segmentor_model", "fastsam",
+            "--fastsam_params", fastsam_npz(tmp_path), "--device", "cpu"]
+    report = demo.main(args + ["--stages", "ism,pem"])
+    assert list(report) == [
+        "ism_model_init", "ism_onboarding", "ism_detect", "ism_serialize",
+        "pem_model_init", "pem_onboarding", "pem_forward", "pem_serialize"]
+    (got,) = proposals
+    n = len(got["masks"])
+    assert n > 0 and got["masks"].shape == (n, 480, 640)
+    b = got["boxes"]
+    assert np.isfinite(b).all() and (b >= 0).all()
+    assert (b[:, 0::2] <= 639).all() and (b[:, 1::2] <= 479).all()
+    ism = json.loads((out / "detection_ism.json").read_text())
+    assert ism and all(0.0 <= r["score"] <= 1.0 for r in ism)
+    assert all(r["segmentation"]["size"] == [480, 640] for r in ism)
+    pem = json.loads((out / "detection_pem.json").read_text())
+    assert len(pem) >= 1
+    R = np.array(pem[0]["R"]).reshape(3, 3)
+    assert abs(np.linalg.det(R) - 1.0) < 1e-2
+
+
 def test_demo_refuses_fastsam(scene, tmp_path):
-    with pytest.raises(NotImplementedError, match="B6"):
+    # FastSAM's weights load strictly: a file of another model (here the
+    # PEM's) is refused before the ISM stage writes anything.
+    pem = tmp_path / "pem.npz"
+    save_npz(TPEM(tiny_config(tc), device="cpu").state_dict(), str(pem))
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="state_dict"):
         demo.main(["--cad_path", scene["cad"], "--rgb_path", "x",
                    "--depth_path", "x", "--cam_path", "x",
-                   "--output_dir", str(tmp_path), "--stages", "ism",
-                   "--segmentor_model", "fastsam", "--device", "cpu"])
-    assert not os.listdir(tmp_path)
+                   "--output_dir", str(out), "--stages", "ism",
+                   "--segmentor_model", "fastsam", "--fastsam_params",
+                   str(pem), "--device", "cpu"])
+    assert not os.listdir(out)

@@ -126,12 +126,13 @@ def tiny():
 
 def test_weight_bridge_is_complete_and_keeps_layouts(tiny):
     # The loads in the fixture are strict: every JAX leaf has a port
-    # parameter except the mask-prompt path's, which is not ported.
+    # parameter, the mask-prompt path's included.
     v = tiny["jsam"].variables
     sd = sam_state_dict(v)
-    skipped = [k for k in flax_to_state_dict(v["prompt"])
-               if k.startswith("mask_downscaling")]
-    assert len(skipped) == 10  # 3 convs and 2 norms: weight and bias
+    mask_path = [k for k in flax_to_state_dict(v["prompt"])
+                 if k.startswith("mask_downscaling")]
+    assert len(mask_path) == 10  # 3 convs and 2 norms: weight and bias
+    assert {f"prompt.{k}" for k in mask_path} <= set(sd)
     assert set(sd) == set(tiny["tsam"].state_dict())
     p = v["encoder"]["params"]
     np.testing.assert_array_equal(sd["encoder.neck_2.kernel"].numpy(),

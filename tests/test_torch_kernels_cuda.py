@@ -607,3 +607,12 @@ def test_demo_pem_stage_on_the_card(dev, tmp_path, monkeypatch):
     assert abs(np.linalg.det(R) - 1.0) < 1e-2
     assert np.isfinite(rows[0]["t"]).all()
     assert read_png(str(tmp_path / "vis_pem.png")).shape == (480, 640, 3)
+
+
+def test_tiny_fastsam_on_the_card_matches_the_cpu(dev):
+    """FastSAM at the "n" scale and 160 px: the head outputs within 1e-4
+    of the CPU's and the same proposals (chip_smoke.check_tiny_fastsam
+    raises otherwise)."""
+    from chip_smoke import check_tiny_fastsam
+
+    assert check_tiny_fastsam(dev)["proposals"] > 3
