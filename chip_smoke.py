@@ -71,7 +71,28 @@ process per source, all at once), then:
    FastSAM's masks at the frame's size, boxes inside it, finite; ISM
    scores in [0, 1]; one pose with |det R - 1| < 1e-2; K5 launched in
    the ISM stage, K1 and K2 in each PEM stage.  Stage times, proposal
-   counts and launches by stage are printed.
+   counts and launches by stage are printed;
+8. PEM training from data at full width, in a temporary directory under
+   `build/`: a MegaPose-layout tree (tests/helpers/megapose_tree.py: 28
+   keys of 480 x 640 frames with 1-3 instances of 2 procedural objects,
+   JPEGs from the numpy writer of tests/helpers/jpeg_writer.py, 16-bit
+   depth PNGs, column-major RLE masks, 2 templates an object), then
+   `train_cli --data_dir` (MegaPoseDataset -> the Solver's thread
+   prefetcher -> train_step, batch 28, bf16 compute, float32 parameters
+   and Adam state) for 3 steps, each timed with CUDA events beside the
+   host's wait for its batch; one `__getitem__`, a JPEG decode and a
+   `color_augment` timed on the host clock; then RenderedPoseDataset
+   (uint8 planes) -> ProcessSampleStream (min(8, cores - 1) forked numpy
+   workers) -> DevicePrefetcher -> train_step for 24 steps on the same
+   state (the waits after the first N steps, which the workers' first
+   batches serve, reported apart); the step on one batch on the card
+   alone, beside MegaPose loading in a thread and in a forked process,
+   in turns; then `save_params` -> `PEMRunner.load_params` (no missed
+   entry) -> one onboarding and one request.  Required: the batch
+   shapes, finite metrics, an applied update, K1, K2, K3 and K7 in both
+   trainings (counters zeroed before, read after), uint8 planes on the
+   card, no worker or loader alive after close, a pose with
+   |det R - 1| < 1e-2, K1 and K2 in the handoff.
 
 Any failure exits non-zero.  The last lines are the nvidia-smi name and
 power limit, {"kernels": [...]}, and
@@ -2041,6 +2062,336 @@ def phase_weights(dev, smi: str, tmp: Path):
                 pose_gt=dict(R=R.tolist(), t_mm=t.tolist()),
                 launches_by_stage=by_stage, launches=launches)
 
+def timed_steps(step_fn, kernels_note: str):
+    """Wrap step_fn(state, batch, generator) -> metrics: CUDA events
+    around each step, the host's wait for the batch from the end of the
+    previous step (or from the time appended to the returned `marks`
+    before the first) to the start of this one, and the batch's shapes
+    and image dtype; returns (wrapper, per-step records, marks)."""
+    import torch
+
+    steps, last_end = [], []
+
+    def run(st, batch, generator):
+        t_in = time.perf_counter()
+        wait = (t_in - last_end[-1]) * 1e3
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        m = step_fn(st, batch, generator)
+        e.record()
+        e.synchronize()
+        steps.append(dict(
+            ms=s.elapsed_time(e), data_wait_ms=wait,
+            shapes={k: list(v.shape) for k, v in batch.items()},
+            rgb_dtype=str(batch["rgb"].dtype),
+            rgb_device=str(getattr(batch["rgb"], "device", "host")), **m))
+        last_end.append(time.perf_counter())
+        log(f"{kernels_note} step {len(steps)}: {steps[-1]['ms']:.1f} ms, "
+            f"loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4g}, "
+            f"update_skipped {m['update_skipped']:.0f}, waited for data "
+            f"{wait:.1f} ms")
+        return m
+
+    return run, steps, last_end
+
+
+def host_sample_times(ds, jpeg_path: str, n: int = 4):
+    """Host-clock ms of MegaPoseDataset.__getitem__ (n samples), of a full
+    and a crop-limited JPEG decode of one frame, and of color_augment on a
+    200 x 200 crop (10 seeds)."""
+    import numpy as np
+
+    from sam6d_tpu_torch.provider.augment import color_augment
+    from sam6d_tpu_torch.utils.jpeg import read_jpeg
+
+    def ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    sample = [ms(lambda i=i: ds[i]) for i in range(n)]
+    full = [ms(lambda: read_jpeg(jpeg_path)) for _ in range(3)]
+    half = [ms(lambda: read_jpeg(jpeg_path, rows=240)) for _ in range(3)]
+    crop = read_jpeg(jpeg_path)[140:340, 220:420]
+    aug = [ms(lambda s=s: color_augment(np.random.RandomState(s), crop))
+           for s in range(10)]
+    return dict(sample_ms=sample, jpeg_full_ms=full, jpeg_rows240_ms=half,
+                color_augment_ms=aug)
+
+
+def phase_train_data(dev, smi: str, tmp: Path):
+    """Phase 8: PEM training from data at full width, in `tmp`; see the
+    module docstring."""
+    import gc
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch.config import TrainConfig, default_pem_config
+    from sam6d_tpu_torch.ops import fps, geo_embed, scatter_rows
+    from sam6d_tpu_torch.pipeline.pem_data import normalize_rgb_np
+    from sam6d_tpu_torch.pipeline.pem_runner import PEMRunner
+    from sam6d_tpu_torch.provider.training_dataset import (
+        RenderedPoseDataset,
+        collate,
+    )
+    from sam6d_tpu_torch.train import train_cli
+    from sam6d_tpu_torch.train.checkpoint import save_params
+    from sam6d_tpu_torch.train.solver import (
+        DevicePrefetcher,
+        ProcessSampleStream,
+    )
+    from sam6d_tpu_torch.train.state import train_step
+
+    t_phase = time.perf_counter()
+    B, n_keys, n_steps = 28, 28, 3
+    kernels = [fps.KERNEL, geo_embed.KERNEL, geo_embed.KERNEL_BWD,
+               scatter_rows.KERNEL]
+
+    # 1. A MegaPose-layout tree of 480 x 640 frames (numpy JPEG writer).
+    t0 = time.perf_counter()
+    tree = tmp / "megapose"
+    load_helper("megapose_tree").write_megapose_tree(
+        tree, n_keys=n_keys, height=480, width=640, seed=0,
+        template_size=256)
+    tree_s = time.perf_counter() - t0
+    n_inst = [len(json.loads(p.read_text())) for p in sorted(
+        tree.glob("MegaPose-GSO/train_pbr_web/shard-*/*.gt.json"))]
+    log(f"MegaPose tree: {n_keys} keys of 480 x 640 ({sum(n_inst)} "
+        f"instances, 1-3 a frame), 2 objects x 2 templates of 256 px, "
+        f"written in {tree_s:.1f} s")
+
+    # 2. train_cli --data_dir: MegaPoseDataset -> Solver (thread
+    # prefetcher) -> train_step, bf16 compute, float32 parameters.
+    log_dir = ROOT / "build" / "train_data_log"
+    args = train_cli.parse_args([
+        "--data_dir", str(tree), "--steps", str(n_steps), "--epochs", "1",
+        "--batch_size", str(B), "--log_dir", str(log_dir)])
+    solver = train_cli.build_solver(args)
+    state = solver.state
+    step_fn, steps, marks = timed_steps(solver.step_fn, "from-data")
+    solver.step_fn = step_fn
+    before = [p.detach().clone() for p in state.model.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    marks.append(t0)  # the first wait: the first batch from scratch
+    solver.solve(1)
+    solve_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    changed = sum(int(not torch.equal(a, p)) for a, p in
+                  zip(before, state.model.parameters()))
+    del before
+    require(len(steps) == n_steps and state.step == n_steps,
+            f"from-data training: {len(steps)} steps ran")
+    for k in kernels:
+        require(launches[k.name] > 0,
+                f"{k.name} never ran in training from data")
+    for m in steps:
+        require(all(math.isfinite(v) for k, v in m.items()
+                    if isinstance(v, float)),
+                f"from-data training: non-finite metric in {m}")
+    require(state.optimizer.count > 0 and changed > 0,
+            f"from-data training: no update applied "
+            f"({state.optimizer.count} updates, {changed} tensors changed)")
+    cfg = solver.cfg  # (28, 2048, 3), (28, 224, 224, 3), (28, 2, 5000, 3)
+    want = {"pts": [B, cfg.n_sample_observed_point, 3],
+            "rgb": [B, cfg.img_size, cfg.img_size, 3],
+            "tem_pts": [B, 2, cfg.n_sample_template_point, 3]}
+    for m in steps:
+        for k, shape in want.items():
+            require(m["shapes"][k] == shape,
+                    f"from-data batch {k} {m['shapes'][k]}, want {shape}")
+    host = host_sample_times(solver.dataloader.dataset, str(sorted(
+        tree.glob("MegaPose-GSO/train_pbr_web/shard-*/*.rgb.jpg"))[0]))
+    step_ms = statistics.median(m["ms"] for m in steps)
+    waits = [m["data_wait_ms"] for m in steps]
+    log(smi)
+    log(f"from data: {n_steps} steps at batch {B}, median {step_ms:.1f} ms "
+        f"a step (CUDA events), waits for data (the first from the solve's "
+        f"start) {[round(w, 1) for w in waits]} ms, solve {solve_s:.1f} s "
+        f"wall, peak memory "
+        f"{peak / 2**30:.2f} GiB, {state.optimizer.count} updates, "
+        f"{changed} tensors changed, launches {launches}")
+    log("host ms (clock): MegaPoseDataset.__getitem__ "
+        f"{[round(x, 1) for x in host['sample_ms']]}, JPEG 480 x 640 full "
+        f"{[round(x, 1) for x in host['jpeg_full_ms']]}, to row 240 "
+        f"{[round(x, 1) for x in host['jpeg_rows240_ms']]}, color_augment "
+        f"200 x 200 median {statistics.median(host['color_augment_ms']):.1f}"
+        f" (max {max(host['color_augment_ms']):.1f})")
+    from_data = dict(steps=steps, step_ms=step_ms, data_wait_ms=waits,
+                     solve_s=solve_s, peak_bytes=peak,
+                     updates_applied=state.optimizer.count,
+                     params_changed=changed, launches=launches,
+                     host=host, tree_s=tree_s, instances=sum(n_inst))
+
+    # 3. RenderedPoseDataset(uint8_rgb) -> ProcessSampleStream (forked
+    # numpy workers) -> DevicePrefetcher -> train_step, the same state.
+    # The workers' first batches are all made during the first wait, and
+    # the queues hold n_workers of them, so the steps after the first
+    # n_workers read batches that were made while the card trained: their
+    # waits are the steady ones.
+    n_workers = min(8, (os.cpu_count() or 2) - 1)
+    n_rsteps = 24
+    t0 = time.perf_counter()
+    ds = RenderedPoseDataset(TrainConfig(batch_size=B), n_objects=8,
+                             n_samples=10 ** 9, seed=0, uint8_rgb=True)
+    ds_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    collate([ds[10 ** 6 + j] for j in range(B)])
+    batch_s = time.perf_counter() - t0  # one worker's batch, uncontended
+    gc.collect()
+    for k in kernels:
+        k.launches = 0
+    r_step, r_steps, r_marks = timed_steps(train_step, "rendered")
+    t0 = time.perf_counter()
+    r_marks.append(t0)  # the first wait: from the workers' start
+    stream = ProcessSampleStream(ds, B, n_workers=n_workers, depth=4)
+    pf = DevicePrefetcher(stream, device=dev, depth=2)
+    try:
+        it = iter(pf)
+        for _ in range(n_rsteps):
+            last_batch = next(it)
+            r_step(state, last_batch, solver.generator)
+    finally:
+        pf.close()
+        stream.close()
+    stream_s = time.perf_counter() - t0
+    r_launches = {k.name: k.launches for k in kernels}
+    alive = [p.pid for p in stream.workers if p.is_alive()]
+    require(not alive, f"rendered stream: workers {alive} still alive")
+    for k in kernels:
+        require(r_launches[k.name] > 0,
+                f"{k.name} never ran on the rendered stream")
+    for m in r_steps:
+        require(m["rgb_dtype"] == "torch.uint8"
+                and m["rgb_device"].split(":")[0] == torch.device(dev).type,
+                f"rendered stream: rgb arrived as {m['rgb_dtype']} on "
+                f"{m['rgb_device']}")
+        require(all(math.isfinite(v) for k, v in m.items()
+                    if isinstance(v, float)),
+                f"rendered stream: non-finite metric in {m}")
+    require(len(r_steps) == n_rsteps,
+            f"rendered stream: {len(r_steps)} steps ran")
+    r_ms = statistics.median(m["ms"] for m in r_steps)
+    r_waits = [m["data_wait_ms"] for m in r_steps]
+    steady = r_waits[n_workers:]
+    steady_ms = [m["ms"] for m in r_steps[n_workers:]]
+    log(f"rendered stream: {n_workers} workers, dataset built in "
+        f"{ds_s:.1f} s, one batch of {B} in the main process "
+        f"{batch_s * 1e3:.1f} ms (host clock), {n_rsteps} steps at batch "
+        f"{B}, median {r_ms:.1f} ms a step, waits for data (the first from "
+        f"the workers' start) {[round(w, 1) for w in r_waits]} ms; after "
+        f"the first {n_workers} steps: waits median "
+        f"{statistics.median(steady):.1f} max {max(steady):.1f} ms, steps "
+        f"median {statistics.median(steady_ms):.1f} max "
+        f"{max(steady_ms):.1f} ms; {stream_s:.1f} s wall, launches "
+        f"{r_launches}, no worker alive after close")
+    rendered = dict(n_workers=n_workers, dataset_s=ds_s,
+                    batch_ms_main=batch_s * 1e3, steps=r_steps,
+                    step_ms=r_ms, data_wait_ms=r_waits,
+                    steady_from_step=n_workers + 1,
+                    steady_wait_ms_median=statistics.median(steady),
+                    steady_wait_ms_max=max(steady),
+                    steady_step_ms_median=statistics.median(steady_ms),
+                    stream_s=stream_s, launches=r_launches)
+
+    # 3b. The from-data step slows while the Solver's thread loads.  Time
+    # the step on one batch already on the card, alone and beside the
+    # same MegaPose loading in a thread of this interpreter or in a forked
+    # process, in turns: a thread that slows it and a process that does
+    # not point at the shared interpreter (the GIL), not at the cores or
+    # the batch's copy.
+    import multiprocessing as mp
+
+    md = solver.dataloader.dataset
+
+    def load_loop(stop):
+        i = 0
+        while not stop.is_set():
+            md[i % len(md)]
+            i += 1
+
+    beside = {"alone": [], "loader thread": [], "loader process": []}
+    for _ in range(2):
+        for label, ms in beside.items():
+            if label == "loader process":
+                stop = mp.get_context("fork").Event()
+                loader = mp.get_context("fork").Process(
+                    target=load_loop, args=(stop,), daemon=True)
+            else:
+                stop = threading.Event()
+                loader = threading.Thread(target=load_loop, args=(stop,),
+                                          daemon=True)
+            if label != "alone":
+                loader.start()
+                time.sleep(0.2)
+            s_ev, e_ev = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            s_ev.record()
+            train_step(state, last_batch, solver.generator)
+            e_ev.record()
+            e_ev.synchronize()
+            ms.append(s_ev.elapsed_time(e_ev))
+            stop.set()
+            if label != "alone":
+                loader.join(timeout=10.0)
+                if isinstance(loader, mp.Process) and loader.is_alive():
+                    loader.terminate()
+                    loader.join(timeout=2.0)
+                require(not loader.is_alive(), f"{label} still alive")
+    log(f"step on one rendered batch on the card, in turns (CUDA events, "
+        f"ms): { {k: [round(x, 1) for x in v] for k, v in beside.items()} }")
+    rendered["loader_beside_step_ms"] = beside
+
+    # 4. The trained weights back into serving.
+    path = save_params(str(tmp / "pem_trained.npz"), state.model)
+    del solver, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    pem_cfg = default_pem_config()
+    runner = PEMRunner(pem_cfg, device=dev, seed=0)
+    misses = runner.load_params(path)
+    require(misses == [], f"handoff: {len(misses)} missed entries "
+            f"{misses[:4]}")
+    idx = next(i for i in range(1000) if ds.sample(i, aug=False)["obj_idx"]
+               == 0)
+    s = ds.sample(idx, aug=False)
+    for k in (fps.KERNEL, geo_embed.KERNEL):
+        k.launches = 0
+    tem_rgb, tem_choose, tem_pts = ds.template_arrays(0)
+    runner.onboard_arrays(tem_rgb, tem_pts, tem_choose)
+    model_pts = ds.meshes[0].sample(pem_cfg.n_sample_model_point, seed=0) / 1e3
+    out = runner.infer({
+        "pts": s["pts"][None], "rgb": normalize_rgb_np(s["rgb"])[None],
+        "rgb_choose": s["rgb_choose"][None],
+        "model_pts": model_pts[None].astype(np.float32),
+        "score": np.ones(1, np.float32)})
+    torch.cuda.synchronize()
+    h_launches = {k.name: k.launches for k in (fps.KERNEL, geo_embed.KERNEL)}
+    R, t = out["pred_R"][0], out["pred_t"][0]
+    det = float(np.linalg.det(R))
+    require(abs(det - 1.0) < 1e-2 and np.isfinite(R).all()
+            and np.isfinite(t).all(), f"handoff pose: det R {det}, t {t}")
+    for name, n in h_launches.items():
+        require(n > 0, f"{name} never ran in the handoff request")
+    wall_s = time.perf_counter() - t_phase
+    log(f"handoff: save_params -> PEMRunner.load_params (0 missed), "
+        f"onboarding 8 views, one request on rendered sample {idx}: det R "
+        f"{det:.6f}, t {np.round(t, 4).tolist()} m (ground truth "
+        f"{np.round(s['gt_t'], 4).tolist()}), launches {h_launches}")
+    log(f"phase 8 wall {wall_s:.1f} s")
+    return dict(from_data=from_data, rendered=rendered,
+                handoff=dict(misses=len(misses), det_R=det, t=t.tolist(),
+                             launches=h_launches),
+                wall_s=wall_s, launches=launches)
+
+
 def main():
     import torch
 
@@ -2101,6 +2452,10 @@ def main():
         log("== phase 7: released-layout checkpoints through the converter, "
             "and the FastSAM demo, at full width")
         weights = phase_weights(dev, smi, Path(tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== phase 8: PEM training from data at full width")
+        train_data = phase_train_data(dev, smi, Path(tmp))
 
     def entry(kernel, rows, main_row, launches, library=None):
         main = rows[main_row]
@@ -2118,6 +2473,8 @@ def main():
             "library": library, "shape": main["shape"], "by_shape": rows,
             "launches_demo": demo_run["launches"].get(kernel.name, 0),
             "launches_fastsam_demo": weights["launches"][kernel.name],
+            **({"launches_train_data": train_data["launches"][kernel.name]}
+               if kernel.name in train_data["launches"] else {}),
         }
 
     # Main rows: FPS of one instance (2048 -> 196) and the bf16 embedding
@@ -2158,7 +2515,7 @@ def main():
         {"smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": build_s, "ptxas": ptxas, "tiny_bf16": tiny_bf16, "tiny_train": tiny_train,
          "tiny_fastsam": tiny_fs, "slice": sl, "ism": ism, "train": train,
-         "demo": demo_run, "weights": weights,
+         "demo": demo_run, "weights": weights, "train_data": train_data,
          **report}, indent=1))
     log(smi)
     print(json.dumps(report))

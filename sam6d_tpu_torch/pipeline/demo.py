@@ -19,9 +19,9 @@ Weights are drawn at random from fixed seeds unless `--sam_params`,
 `.npz` state dicts: `python -m sam6d_tpu_torch.convert_weights` writes
 them from the released checkpoints (or `params.save_npz` of a bridged
 JAX variable tree).  FastSAM's load is strict; the others are tolerant
-(`params.load_npz_tolerant`), as in the JAX demo.  The ISM runs in the
-config's compute dtype (bfloat16) and FastSAM in float32, the PEM in
-float32, as in the JAX demo.
+(`train.checkpoint.restore_params_tolerant`), as in the JAX demo.  The
+ISM runs in the config's compute dtype (bfloat16) and FastSAM in
+float32, the PEM in float32, as in the JAX demo.
 """
 
 from __future__ import annotations
@@ -54,12 +54,12 @@ def run_ism(args, timer: StageTimer):
     from sam6d_tpu_torch.models.ism.onboarding import onboard_objects
     from sam6d_tpu_torch.models.ism.sam.amg import SamAutomaticMaskGenerator
     from sam6d_tpu_torch.models.layers import cast_dense_weights
-    from sam6d_tpu_torch.params import (
-        init_random_,
-        load_npz,
-        load_npz_tolerant,
-    )
+    from sam6d_tpu_torch.params import init_random_
     from sam6d_tpu_torch.pipeline.pem_data import read_depth
+    from sam6d_tpu_torch.train.checkpoint import (
+        restore_params,
+        restore_params_tolerant,
+    )
     from sam6d_tpu_torch.utils.detections import save_json_bop23
     from sam6d_tpu_torch.utils.mesh import load_mesh
     from sam6d_tpu_torch.utils.png import read_png
@@ -78,18 +78,18 @@ def run_ism(args, timer: StageTimer):
                                 scale=f.scale, device=dev)
             init_random_(segmentor.net, torch.Generator().manual_seed(0))
             if args.fastsam_params:
-                segmentor.net.load_state_dict(load_npz(args.fastsam_params))
+                restore_params(args.fastsam_params, segmentor.net)
         else:
             sam = SAM(cfg.segmentor.model_type, dtype=dtype, device=dev)
             init_random_(sam, torch.Generator().manual_seed(0))
             if args.sam_params:
-                load_npz_tolerant(sam, args.sam_params)
+                restore_params_tolerant(args.sam_params, sam)
             segmentor = SamAutomaticMaskGenerator(
                 cast_dense_weights(sam.eval()), cfg.segmentor)
         descriptor = DescriptorModel(cfg.descriptor, dtype=dtype).to(dev)
         init_random_(descriptor, torch.Generator().manual_seed(1))
         if args.dinov2_params:
-            load_npz_tolerant(descriptor.vit, args.dinov2_params)
+            restore_params_tolerant(args.dinov2_params, descriptor.vit)
         detector = ISMDetector(cfg, segmentor,
                                cast_dense_weights(descriptor.eval()),
                                device=dev)

@@ -21,11 +21,12 @@ from sam6d_tpu_torch.config import PEMConfig
 from sam6d_tpu_torch.device import resolve_device
 from sam6d_tpu_torch.models.layers import cast_dense_weights
 from sam6d_tpu_torch.models.pem.model import PEM
-from sam6d_tpu_torch.params import init_random_, load_npz_tolerant
+from sam6d_tpu_torch.params import init_random_
 from sam6d_tpu_torch.pipeline.pem_data import (
     load_all_templates,
     prepare_test_data,
 )
+from sam6d_tpu_torch.train.checkpoint import restore_params_tolerant
 
 
 class PEMRunner:
@@ -85,10 +86,10 @@ class PEMRunner:
 
     def load_params(self, path: str) -> list[str]:
         """Weights from a `.npz` state dict (`params.save_npz`), tolerant
-        of missing entries (`params.load_npz_tolerant`; reference
+        of missing entries (`checkpoint.restore_params_tolerant`; reference
         run_inference_custom_pytorch.py:383-420).  The template bank is
         stale afterwards.  Returns the names that kept their values."""
-        misses = load_npz_tolerant(self.model, path)
+        misses = restore_params_tolerant(path, self.model)
         self.template_bank = None
         self._onboarded_dir = None
         return misses

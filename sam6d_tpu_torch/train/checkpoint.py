@@ -1,10 +1,15 @@
-"""Train-state checkpoints with `torch.save` / `torch.load`.
+"""Train-state checkpoints with `torch.save` / `torch.load`, and the
+params-only export that inference reads.
 
-The port's own format (the JAX package writes orbax checkpoints): one
-file `<ckpt_dir>/<step>.pt` per save holding the model's state dict
-(float32 parameters and the BatchNorm statistics), the optimizer state
-(Adam moments, the update count the schedule reads, the accumulation
-state) and the step.  The newest `max_to_keep` files are kept.
+The port's own formats (the JAX package writes orbax checkpoints):
+
+* train state: one file `<ckpt_dir>/<step>.pt` per save holding the
+  model's state dict (float32 parameters and the BatchNorm statistics),
+  the optimizer state (Adam moments, the update count the schedule
+  reads, the accumulation state) and the step.  The newest `max_to_keep`
+  files are kept.
+* params: the `.npz` state dict of `params.save_npz`, which
+  `PEMRunner.load_params` and the demo's `--*_params` read.
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ from __future__ import annotations
 import os
 
 import torch
+
+from sam6d_tpu_torch.params import load_npz, save_npz
 
 
 def _steps(ckpt_dir: str) -> list:
@@ -51,3 +58,54 @@ def restore_train_state(ckpt_dir: str, state, step: int | None = None):
     state.optimizer.load_state_dict(data["optimizer"])
     state.step = int(data["step"])
     return state
+
+
+def save_params(path: str, model) -> str:
+    """Write a module's (or a state dict's) weights as the port's `.npz`
+    state dict; returns the file's path (`.npz` appended if missing, as
+    numpy does)."""
+    state = model.state_dict() if hasattr(model, "state_dict") else model
+    path = os.fspath(path)
+    if not path.endswith(".npz"):
+        path += ".npz"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    save_npz(state, path)
+    return path
+
+
+def restore_params(path: str, module: torch.nn.Module) -> torch.nn.Module:
+    """Load a `.npz` state dict into `module`, strictly: every entry must
+    be present with its shape, and no other."""
+    module.load_state_dict(load_npz(path), strict=True)
+    return module
+
+
+def restore_params_tolerant(path: str, module: torch.nn.Module,
+                            verbose: bool = True,
+                            max_miss_fraction: float = 0.5) -> list[str]:
+    """Load a `.npz` state dict without being strict: every entry whose
+    name and shape match one of the module's is taken, the module keeps
+    its own tensors elsewhere (after the reference's fallback loader,
+    run_inference_custom_pytorch.py:393-420).  Raises ValueError if more
+    than `max_miss_fraction` of the module's entries found no match: the
+    file then almost certainly belongs to another architecture (1.0
+    allows any partial load).  Returns the names of the entries that kept
+    the module's values, and prints the first of them when `verbose`."""
+    ckpt = load_npz(path)
+    current = module.state_dict()
+    misses = [k for k, v in current.items()
+              if k not in ckpt or tuple(ckpt[k].shape) != tuple(v.shape)]
+    if current and len(misses) / len(current) > max_miss_fraction:
+        raise ValueError(
+            f"tolerant load of {path} matched only "
+            f"{len(current) - len(misses)}/{len(current)} entries "
+            f"(> {max_miss_fraction:.0%} missed); first misses: "
+            f"{misses[:8]}")
+    miss = set(misses)
+    module.load_state_dict({k: ckpt[k] if k not in miss else v
+                            for k, v in current.items()})
+    if verbose and misses:
+        print(f"[checkpoint] kept the module's values for {len(misses)} "
+              f"entries missing or mismatched in {path}: {misses[:8]}"
+              + ("..." if len(misses) > 8 else ""))
+    return misses

@@ -2,10 +2,13 @@
 
 Counterpart of `sam6d_tpu/train/train_cli.py` (reference
 Pose_Estimation_Model/train.py:27-138) on one card: config from the
-dataclasses, the synthetic dataset, the Solver loop with checkpoints and
-resume.  Random weights from `TrainConfig.rd_seed`; parameters and
-optimizer state in float32, the network computing in bfloat16.
+dataclasses, MegaPose web shards or the synthetic dataset, the Solver
+loop with checkpoints and resume.  Random weights from
+`TrainConfig.rd_seed`; parameters and optimizer state in float32, the
+network computing in bfloat16.
 
+  python -m sam6d_tpu_torch.train.train_cli --data_dir /data/MegaPose \
+      --log_dir log/pem --epochs 15
   python -m sam6d_tpu_torch.train.train_cli --synthetic --steps 100
 """
 
@@ -18,6 +21,7 @@ import torch
 
 from sam6d_tpu_torch.config import PEMConfig, TrainConfig
 from sam6d_tpu_torch.provider.training_dataset import (
+    MegaPoseDataset,
     SyntheticPoseDataset,
     batch_iterator,
 )
@@ -41,6 +45,8 @@ class EpochBatches:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train PEM on one card")
+    p.add_argument("--data_dir", default=None,
+                   help="MegaPose root (MegaPose-GSO / -ShapeNetCore)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--log_dir", default="log/pem")
     p.add_argument("--epochs", type=int, default=None)
@@ -50,20 +56,23 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if not args.synthetic:
-        p.error("only --synthetic is ported (MegaPose data loading is not)")
+    if not args.synthetic and not args.data_dir:
+        p.error("--data_dir is required without --synthetic")
     return args
 
 
 def build_solver(args, pem_cfg: PEMConfig | None = None,
                  train_cfg: TrainConfig | None = None) -> Solver:
-    """The Solver the CLI runs: state, synthetic batches, log dir (the
-    default configs unless given)."""
+    """The Solver the CLI runs: state, MegaPose or synthetic batches, log
+    dir (the default configs unless given)."""
     train_cfg = train_cfg or TrainConfig()
     if args.batch_size:
         train_cfg = dataclasses.replace(train_cfg, batch_size=args.batch_size)
     pem_cfg = pem_cfg or PEMConfig()
-    dataset = SyntheticPoseDataset(train_cfg, n_samples=1024)
+    if args.synthetic:
+        dataset = SyntheticPoseDataset(train_cfg, n_samples=1024)
+    else:
+        dataset = MegaPoseDataset(train_cfg, args.data_dir)
     bs = train_cfg.batch_size
     steps = args.steps or max(1, len(dataset) // bs)
     state = create_train_state(pem_cfg, train_cfg.optim, device=args.device,

@@ -616,3 +616,70 @@ def test_tiny_fastsam_on_the_card_matches_the_cpu(dev):
     from chip_smoke import check_tiny_fastsam
 
     assert check_tiny_fastsam(dev)["proposals"] > 3
+
+
+def test_device_prefetcher_batches_equal_the_hosts(dev):
+    """DevicePrefetcher copies on a side stream; once the consumer's
+    stream has waited on the copy's event, each tensor equals its host
+    array (read on the consumer's stream, as the step reads it)."""
+    from sam6d_tpu_torch.train.solver import DevicePrefetcher
+
+    rng = np.random.RandomState(0)
+    host = [{"rgb": rng.randint(0, 256, (4, 224, 224, 3)).astype(np.uint8),
+             "pts": rng.randn(4, 2048, 3).astype(np.float32),
+             "choose": rng.randint(0, 50176, (4, 2048)).astype(np.int32)}
+            for _ in range(6)]
+    pf = DevicePrefetcher(iter(host), device=dev, depth=2)
+    try:
+        got = []
+        for b in pf:
+            assert all(t.device.type == "cuda" for t in b.values())
+            # Work on the consumer's stream, as a step would do.
+            got.append({k: (t * 1).cpu() for k, t in b.items()})
+    finally:
+        pf.close()
+    assert len(got) == len(host)
+    for g, h in zip(got, host):
+        for k in h:
+            np.testing.assert_array_equal(g[k].numpy(), h[k])
+
+
+def test_rendered_stream_feeds_a_tiny_train_step_on_the_card(dev):
+    """RenderedPoseDataset(uint8_rgb) -> ProcessSampleStream (forked numpy
+    workers) -> DevicePrefetcher -> train_step at the tiny config: uint8
+    planes reach the card and are normalised there, K1, K2, K3 and K7
+    launch, the metrics are finite, and no worker outlives close()."""
+    import math
+
+    from chip_smoke import tiny_pem_config
+    from sam6d_tpu_torch.config import OptimConfig, TrainConfig
+    from sam6d_tpu_torch.provider.training_dataset import RenderedPoseDataset
+    from sam6d_tpu_torch.train.solver import (
+        DevicePrefetcher,
+        ProcessSampleStream,
+    )
+    from sam6d_tpu_torch.train.state import create_train_state, train_step
+
+    cfg = TrainConfig(batch_size=2, img_size=32, n_sample_observed_point=64,
+                      n_sample_template_point=48)
+    ds = RenderedPoseDataset(cfg, n_objects=2, n_template_views=3,
+                             frame_size=64, uint8_rgb=True)
+    state = create_train_state(tiny_pem_config(), OptimConfig(), device=dev,
+                               seed=0)
+    stream = ProcessSampleStream(ds, 2, n_workers=2, depth=2)
+    pf = DevicePrefetcher(stream, device=dev)
+    kernels = [fps_mod.KERNEL, ge.KERNEL, ge.KERNEL_BWD, sr.KERNEL]
+    before = [k.launches for k in kernels]
+    try:
+        it = iter(pf)
+        for _ in range(2):
+            batch = next(it)
+            assert batch["rgb"].dtype == torch.uint8
+            assert batch["rgb"].device.type == "cuda"
+            m = train_step(state, batch, torch.Generator(device=dev).manual_seed(0))
+            assert all(math.isfinite(v) for v in m.values()), m
+    finally:
+        pf.close()
+        stream.close()
+    assert all(k.launches > n for k, n in zip(kernels, before))
+    assert not any(p.is_alive() for p in stream.workers)
