@@ -92,7 +92,24 @@ process per source, all at once), then:
    shapes, finite metrics, an applied update, K1, K2, K3 and K7 in both
    trainings (counters zeroed before, read after), uint8 planes on the
    card, no worker or loader alive after close, a pose with
-   |det R - 1| < 1e-2, K1 and K2 in the handoff.
+   |det R - 1| < 1e-2, K1 and K2 in the handoff;
+9. BOP evaluation at full width, in the same temporary directory: an
+   LM-O-like tree (tests/helpers/bop_tree.py: a 60 mm cube listing
+   discrete symmetries and a vase listing a continuous one; 3 test
+   frames of 480 x 640, RGB and 16-bit depth PNGs at depth_scale 0.1;
+   8 train_pbr JPEG frames with their visible masks), its templates from
+   `render_bop_templates` (42 views of 420 px an object); `run_ism_eval`
+   (SAM ViT-H + DINOv2-L, bf16, random weights from seeds, phase 4's
+   opened thresholds) onboarded from the templates, then from train_pbr;
+   `run_bop_eval` (default_pem_config) on a detection json of the GT
+   visible masks, both objects in every frame; the `bop_score` CLI in a
+   process of its own on the GT poses and on the PEM's csv, and once
+   more in this process with each VSD render timed.  Required: rows of
+   every frame whose category_id is the tree's and whose RLE decodes to
+   480 x 640, K4, K5 and K6 in each ISM sweep (counters zeroed before,
+   read after); a pose a detection with |det R - 1| < 1e-2 and a finite
+   t, result_bop.csv, K1 and K2 in the PEM sweep; AR exactly 1.0 with
+   VSD on the GT poses, a finite AR in [0, 1] on the PEM's.
 
 Any failure exits non-zero.  The last lines are the nvidia-smi name and
 power limit, {"kernels": [...]}, and
@@ -2392,6 +2409,241 @@ def phase_train_data(dev, smi: str, tmp: Path):
                 wall_s=wall_s, launches=launches)
 
 
+def phase_bop(dev, smi: str, tmp: Path):
+    """Phase 9: BOP evaluation at full width, in `tmp`; see the module
+    docstring."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch.config import default_ism_config, default_pem_config
+    from sam6d_tpu_torch.models.ism.detector import ISMDetector
+    from sam6d_tpu_torch.models.ism.dinov2 import DescriptorModel
+    from sam6d_tpu_torch.models.ism.sam.amg import SamAutomaticMaskGenerator
+    from sam6d_tpu_torch.models.ism.sam.model import SAM
+    from sam6d_tpu_torch.models.layers import cast_dense_weights
+    from sam6d_tpu_torch.ops import decode_tail, flash_rpe, fps, geo_embed
+    from sam6d_tpu_torch.params import init_random_
+    from sam6d_tpu_torch.pipeline import bop_score, ism_eval
+    from sam6d_tpu_torch.pipeline.bop_eval import run_bop_eval, write_bop_csv
+    from sam6d_tpu_torch.pipeline.renderer import render_bop_templates
+    from sam6d_tpu_torch.utils.rle import rle_to_mask
+
+    t_phase = time.perf_counter()
+    ism_kernels = [flash_rpe.KERNEL_RPE, flash_rpe.KERNEL_PLAIN,
+                   decode_tail.KERNEL]
+    pem_kernels = [fps.KERNEL, geo_embed.KERNEL]
+
+    def counts(kernels):
+        return {k.name: k.launches for k in kernels}
+
+    # 1. An LM-O-like tree (tests/helpers/bop_tree.py) and its templates.
+    bt = load_helper("bop_tree")
+    ds, templates = tmp / "lmo", tmp / "lmo_templates"
+    t0 = time.perf_counter()
+    tree = bt.write_bop_tree(ds, height=480, width=640, n_test=3, n_pbr=8)
+    tree_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    render_bop_templates(str(ds / "models"), str(templates))
+    render_s = time.perf_counter() - t0
+    ids = set(tree["obj_ids"])
+    log(f"BOP tree: objects {sorted(ids)}, 3 test frames (PNG, depth_scale "
+        f"0.1) and 8 train_pbr frames (JPEG) of 480 x 640, written in "
+        f"{tree_s:.1f} s; render_bop_templates (2 x 42 views of 420 px) "
+        f"{render_s:.1f} s")
+
+    # 2. The ISM sweep at full width with phase 4's opened thresholds,
+    # onboarded from the rendered templates, then from train_pbr.
+    cfg = default_ism_config()
+    seg = dataclasses.replace(cfg.segmentor, pred_iou_thresh=-1e9,
+                              stability_score_thresh=-1e9)
+    cfg = dataclasses.replace(cfg, segmentor=seg, confidence_thresh=-1.0)
+    dtype = torch.bfloat16
+    sam = SAM(cfg.segmentor.model_type, dtype=dtype, device="cpu")
+    init_random_(sam, torch.Generator().manual_seed(0))
+    fill_rel_pos_(sam, torch.Generator().manual_seed(2))
+    sam = cast_dense_weights(sam.to(dev).eval())
+    desc = DescriptorModel(cfg.descriptor, dtype=dtype)
+    init_random_(desc, torch.Generator().manual_seed(1))
+    desc = cast_dense_weights(desc.to(dev).eval())
+    onboarded = {}
+    wrapped = {name: getattr(ism_eval, name)
+               for name in ("onboard_objects", "onboard_objects_pbr")}
+
+    def timed(name):
+        def run(*args, **kwargs):
+            before = counts(ism_kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = wrapped[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            onboarded[name] = dict(
+                s=time.perf_counter() - t0,
+                launches={k: v - before[k]
+                          for k, v in counts(ism_kernels).items()})
+            return out
+        return run
+
+    ism = {}
+    for name in wrapped:
+        setattr(ism_eval, name, timed(name))
+    try:
+        for onboarding in ("render", "pbr"):
+            det = ISMDetector(cfg, SamAutomaticMaskGenerator(sam, seg), desc,
+                              device=dev)
+            out = tmp / f"ism_{onboarding}"
+            for k in ism_kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            rows = ism_eval.run_ism_eval(det, str(ds), str(templates),
+                                         str(out), onboarding=onboarding)
+            wall_s = time.perf_counter() - t0
+            launches = counts(ism_kernels)
+            ob = onboarded[{"render": "onboard_objects",
+                            "pbr": "onboard_objects_pbr"}[onboarding]]
+            frame_s = {r["image_id"]: r["time"] for r in rows}
+            require(rows and sorted(frame_s) == [0, 1, 2],
+                    f"ISM sweep ({onboarding}): rows of frames "
+                    f"{sorted(frame_s)}")
+            for r in rows:
+                require(r["category_id"] in ids
+                        and rle_to_mask(r["segmentation"]).shape == (480, 640)
+                        and 0.0 <= r["score"] <= 1.0,
+                        f"ISM sweep ({onboarding}): row {r['category_id']} "
+                        f"{r['segmentation']['size']} {r['score']}")
+            for k in ism_kernels:
+                require(launches[k.name] > 0,
+                        f"{k.name} never ran in the ISM sweep ({onboarding})")
+            require(os.path.exists(out / "ism_descriptors.npz")
+                    and det.ref_data.descriptors.shape[:2] == (2, 42),
+                    f"ISM sweep ({onboarding}): the descriptor cache")
+            ism[onboarding] = dict(
+                wall_s=wall_s, onboarding_s=ob["s"],
+                onboarding_launches=ob["launches"],
+                frame_s=frame_s, rows=len(rows),
+                by_object={i: sum(r["category_id"] == i for r in rows)
+                           for i in sorted(ids)},
+                launches=launches,
+                frame_launches={k: launches[k] - ob["launches"][k]
+                                for k in launches})
+            log(f"ISM sweep, {onboarding} onboarding: {len(rows)} rows "
+                f"{ism[onboarding]['by_object']}, onboarding "
+                f"{ob['s']:.2f} s (launches {ob['launches']}), frames "
+                + ", ".join(f"{v * 1e3:.1f}" for v in frame_s.values())
+                + f" ms (rows' time), sweep wall {wall_s:.1f} s, frame "
+                f"launches {ism[onboarding]['frame_launches']}")
+    finally:
+        for name, fn in wrapped.items():
+            setattr(ism_eval, name, fn)
+    del sam, desc, det
+    torch.cuda.empty_cache()
+
+    # 3. The PEM sweep at full width on the GT masks (random weights find
+    # no object): both objects in every frame, so the bank cache switches.
+    det_path = tmp / "lmo_gt_detections.json"
+    dets = bt.gt_detections(ds)
+    bt.save_json(det_path, dets)
+    pem_out = tmp / "pem"
+    for k in pem_kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    rows = run_bop_eval(default_pem_config(), str(ds), str(det_path),
+                        str(templates), str(pem_out), device=dev)
+    torch.cuda.synchronize()
+    pem_wall_s = time.perf_counter() - t0
+    pem_launches = counts(pem_kernels)
+    require(len(rows) == len(dets) == 6,
+            f"PEM sweep: {len(rows)} rows for {len(dets)} detections")
+    for r in rows:
+        R = np.array(r["R"], np.float64).reshape(3, 3)
+        d = float(np.linalg.det(R))
+        require(abs(d - 1.0) < 1e-2 and np.isfinite(R).all()
+                and np.isfinite(r["t"]).all(),
+                f"PEM sweep pose: det R {d}, t {r['t']}")
+    csv = pem_out / "result_bop.csv"
+    require(csv.exists() and len(csv.read_text().splitlines()) == 7,
+            "PEM sweep: result_bop.csv")
+    for k in pem_kernels:
+        require(pem_launches[k.name] > 0, f"{k.name} never ran in the PEM "
+                                          "sweep")
+    # `time` runs from each frame's start: frame 0 holds both onboardings;
+    # in frames 1 and 2 each row adds one instance.
+    per_instance_s = []
+    for im in (1, 2):
+        ts = sorted(r["time"] for r in rows if r["im_id"] == im)
+        per_instance_s += list(np.diff([0.0] + ts))
+    log(f"PEM sweep: {len(rows)} poses, rows' time (s) "
+        + ", ".join(f"({r['im_id']}, {r['obj_id']}) {r['time']:.4f}"
+                    for r in rows)
+        + f"; per instance in frames 1-2 "
+        + ", ".join(f"{v * 1e3:.1f}" for v in per_instance_s)
+        + f" ms; sweep wall {pem_wall_s:.1f} s; launches {pem_launches}")
+
+    # 4. The scorer's CLI in a process of its own: the GT poses with VSD
+    # score AR 1 exactly; the PEM's csv a finite AR in [0, 1].
+    def score_cli(path):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sam6d_tpu_torch.pipeline.bop_score",
+             "--csv", str(path), "--dataset_dir", str(ds)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        require(proc.returncode == 0, f"bop_score CLI: {proc.stderr[-2000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1]), wall
+
+    gt_csv = tmp / "lmo_gt_poses.csv"
+    write_bop_csv(bt.gt_pose_rows(ds), str(gt_csv))
+    gt_score, gt_wall_s = score_cli(gt_csv)
+    require(gt_score["ar"] == 1.0 and gt_score.get("ar_vsd") == 1.0
+            and gt_score["n_gt"] == 6, f"GT poses scored {gt_score}")
+    pem_score, pem_score_s = score_cli(csv)
+    require(all(math.isfinite(pem_score[k]) and 0.0 <= pem_score[k] <= 1.0
+                for k in ("ar", "ar_mssd", "ar_mspd", "ar_vsd")),
+            f"PEM poses scored {pem_score}")
+    # The numpy rasterizer's share of the scorer: the PEM csv once more in
+    # this process, each VSD depth render timed.
+    renders = []
+    render_depth = bop_score._render_depth
+
+    def timed_render(*args):
+        t0 = time.perf_counter()
+        out = render_depth(*args)
+        renders.append(time.perf_counter() - t0)
+        return out
+
+    bop_score._render_depth = timed_render
+    try:
+        t0 = time.perf_counter()
+        again = bop_score.score_dataset(bop_score.read_bop_csv(str(csv)),
+                                        str(ds))
+        score_s = time.perf_counter() - t0
+    finally:
+        bop_score._render_depth = render_depth
+    require(again == pem_score, f"in-process score {again} != CLI's")
+    render_ms = 1e3 * statistics.median(renders)
+    wall_s = time.perf_counter() - t_phase
+    log(smi)
+    log(f"bop_score CLI (own process): GT poses {gt_wall_s:.2f} s -> "
+        f"{gt_score}; PEM poses {pem_score_s:.2f} s -> {pem_score}")
+    log(f"bop_score in process on the PEM's csv: {score_s:.3f} s, of it "
+        f"{len(renders)} VSD depth renders at 480 x 640 {sum(renders):.3f} s "
+        f"({100 * sum(renders) / score_s:.1f}%), median {render_ms:.1f} ms "
+        f"a render")
+    log(f"phase 9 wall {wall_s:.1f} s")
+    return dict(tree_s=tree_s, render_s=render_s, ism=ism,
+                pem=dict(wall_s=pem_wall_s, launches=pem_launches,
+                         rows_time_s=[(r["im_id"], r["obj_id"], r["time"])
+                                      for r in rows],
+                         per_instance_s=per_instance_s),
+                score=dict(gt=gt_score, gt_cli_s=gt_wall_s, pem=pem_score,
+                           pem_cli_s=pem_score_s, in_process_s=score_s,
+                           renders=len(renders), render_s=sum(renders),
+                           render_ms_median=render_ms),
+                wall_s=wall_s)
+
+
 def main():
     import torch
 
@@ -2456,6 +2708,10 @@ def main():
         torch.cuda.empty_cache()
         log("== phase 8: PEM training from data at full width")
         train_data = phase_train_data(dev, smi, Path(tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== phase 9: BOP evaluation at full width")
+        bop = phase_bop(dev, smi, Path(tmp))
 
     def entry(kernel, rows, main_row, launches, library=None):
         main = rows[main_row]
@@ -2516,6 +2772,7 @@ def main():
          "build_s": build_s, "ptxas": ptxas, "tiny_bf16": tiny_bf16, "tiny_train": tiny_train,
          "tiny_fastsam": tiny_fs, "slice": sl, "ism": ism, "train": train,
          "demo": demo_run, "weights": weights, "train_data": train_data,
+         "bop": bop,
          **report}, indent=1))
     log(smi)
     print(json.dumps(report))

@@ -1,11 +1,12 @@
-"""ISM template onboarding from rendered template directories.
+"""ISM template onboarding from rendered template directories or from a
+BOP dataset's train_pbr renders.
 
 Counterpart of `sam6d_tpu/models/ism/onboarding.py` (reference
 run_inference_custom.py:129-163: load the 42 rendered views, crop and
 resize them to the descriptor's input, then detector.set_reference_
-objects), with the port's PNG codec and PIL-exact resize in place of
-PIL, so the crops equal the JAX package's.  Onboarding from a dataset's
-train_pbr renders (`onboard_objects_pbr`) is not ported yet.
+objects; and the BOPTemplatePBR flow, `provider/bop_pbr.py`), with the
+port's codecs and PIL-exact resize in place of PIL, so the crops equal
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -14,6 +15,10 @@ import os
 
 import numpy as np
 
+from sam6d_tpu_torch.provider.bop_pbr import (
+    load_pbr_onboarding_templates,
+    scan_pbr_instances,
+)
 from sam6d_tpu_torch.utils.bbox import square_bbox
 from sam6d_tpu_torch.utils.png import read_png
 from sam6d_tpu_torch.utils.resize import pil_resize
@@ -71,6 +76,37 @@ def onboard_objects(detector, template_dirs: dict[int, str],
         template_images=np.stack(images),
         template_masks=np.stack(masks),
         template_poses=template_poses,
+        pointcloud=pcs,
+        cache_path=cache_path,
+    )
+    return obj_ids
+
+
+def onboard_objects_pbr(detector, dataset_dir: str, obj_ids: list[int],
+                        pointclouds: dict[int, np.ndarray] | None = None,
+                        cache_path: str | None = None, **scan_kwargs):
+    """Onboard objects from the dataset's train_pbr renders instead of
+    rendered templates (reference BOPTemplatePBR; `provider/bop_pbr.py`).
+    Objects without a visible train_pbr instance are left out; returns
+    the sorted ids onboarded."""
+    per_obj = scan_pbr_instances(dataset_dir, **scan_kwargs)
+    obj_ids = sorted(oid for oid in obj_ids if oid in per_obj)
+    size = detector.cfg.descriptor.image_size
+    images, masks, poses = [], [], None
+    for oid in obj_ids:
+        im, m, poses = load_pbr_onboarding_templates(
+            dataset_dir, oid, image_size=size, per_obj=per_obj)
+        images.append(im)
+        masks.append(m)
+    if not obj_ids:
+        raise ValueError(f"no train_pbr instances found in {dataset_dir}")
+    pcs = None
+    if pointclouds is not None:
+        pcs = np.stack([pointclouds[oid] for oid in obj_ids])
+    detector.onboard_templates(
+        template_images=np.stack(images),
+        template_masks=np.stack(masks),
+        template_poses=poses,
         pointcloud=pcs,
         cache_path=cache_path,
     )
