@@ -109,7 +109,24 @@ process per source, all at once), then:
    480 x 640, K4, K5 and K6 in each ISM sweep (counters zeroed before,
    read after); a pose a detection with |det R - 1| < 1e-2 and a finite
    t, result_bop.csv, K1 and K2 in the PEM sweep; AR exactly 1.0 with
-   VSD on the GT poses, a finite AR in [0, 1] on the PEM's.
+   VSD on the GT poses, a finite AR in [0, 1] on the PEM's;
+10. the modules ported last, in the same temporary directory:
+   PointNet++'s SSG classification net's first SA layer at its published
+   widths (npoint 512, radius 0.2, nsample 32, MLP [64, 64, 128]) on 8
+   clouds of 2048 points, then an FP module back to them (MLP [128,
+   128]), seeded weights, float32, against the same modules on the CPU
+   (K1's counter zeroed before, read after); the native host library
+   (`utils/native.py`: its g++ build timed), the demo's render stage (42
+   views at 420 px of the example cube) through it and through numpy,
+   12 VSD depth renders at 480 x 640 of phase 9's GT poses through each
+   in turns (masks within 2e-3 of the pixels, depth 1e-4 where both
+   cover), its call counter required; a one-rank NCCL group:
+   `PEMRunner` on a 1 x 1 ("dp", "hyp") mesh against the runner without
+   one under the same injected uniforms (K1 and K2 required),
+   `sync_hosts`, `write_shard_and_merge`, one step of `train_cli.main
+   --tp 1` at batch 4 through the distributed code (finite metrics, an
+   applied update, K1, K2, K3 and K7 required), the group destroyed; `profiling.trace` around one PEM request naming its
+   `annotate` span, and `debug_tap` writing a tensor.
 
 Any failure exits non-zero.  The last lines are the nvidia-smi name and
 power limit, {"kernels": [...]}, and
@@ -2602,8 +2619,9 @@ def phase_bop(dev, smi: str, tmp: Path):
     require(all(math.isfinite(pem_score[k]) and 0.0 <= pem_score[k] <= 1.0
                 for k in ("ar", "ar_mssd", "ar_mspd", "ar_vsd")),
             f"PEM poses scored {pem_score}")
-    # The numpy rasterizer's share of the scorer: the PEM csv once more in
-    # this process, each VSD depth render timed.
+    # The rasterizer's share of the scorer (the native library since PR
+    # 12; phase 10 times it against numpy): the PEM csv once more in this
+    # process, each VSD depth render timed.
     renders = []
     render_depth = bop_score._render_depth
 
@@ -2642,6 +2660,403 @@ def phase_bop(dev, smi: str, tmp: Path):
                            renders=len(renders), render_s=sum(renders),
                            render_ms_median=render_ms),
                 wall_s=wall_s)
+
+
+def check_pointnet2(dev):
+    """PointNet++'s SSG classification net's first SA layer at its
+    published widths (Qi et al. 2017: npoint 512, radius 0.2, nsample 32,
+    MLP [64, 64, 128]) on B = 8 clouds of 2048 points with use_xyz and no
+    features, then an FP module back to the 2048 points (MLP [128, 128]);
+    seeded weights and BatchNorm statistics, eval mode, float32, on the
+    card (FPS through K1) against the same modules on the CPU."""
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch.ops import fps
+    from sam6d_tpu_torch.ops.pointnet2_modules import (
+        PointnetFPModule,
+        PointnetSAModule,
+    )
+    from sam6d_tpu_torch.params import init_random_
+
+    gen = torch.Generator().manual_seed(10)
+    sa = init_random_(PointnetSAModule([64, 64, 128], npoint=512, radius=0.2,
+                                       nsample=32), gen).eval()
+    fp = init_random_(PointnetFPModule([128, 128], in_channels=128),
+                      gen).eval()
+    with torch.no_grad():
+        for name, b in list(sa.named_buffers()) + list(fp.named_buffers()):
+            b.copy_((0.5 + torch.rand(b.shape, generator=gen))
+                    if name.endswith("running_var")
+                    else 0.1 * torch.randn(b.shape, generator=gen))
+    rng = np.random.RandomState(10)
+    xyz = torch.from_numpy((rng.rand(8, 2048, 3) - 0.5).astype(np.float32))
+
+    def run(x):
+        with torch.inference_mode():
+            new_xyz, feats = sa(x)
+            return new_xyz, feats, fp(x, new_xyz, None, feats)
+
+    t0 = time.perf_counter()
+    cpu = run(xyz)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    sa.to(dev)
+    fp.to(dev)
+    x = xyz.to(dev)
+    run(x)  # first use: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    fps.KERNEL.launches = 0
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    gpu = run(x)
+    e.record()
+    e.synchronize()
+    card_ms = s.elapsed_time(e)
+    launches = fps.KERNEL.launches
+    require(launches > 0, "pointnet2: K1 never ran in PointnetSAModule")
+    with torch.inference_mode():
+        idx_gpu = fps.furthest_point_sample(x, 512).cpu()
+    idx_cpu = fps.fps_plain(xyz, 512)
+    require(torch.equal(idx_gpu, idx_cpu), "pointnet2: K1's centres differ "
+                                           "from the CPU's")
+    errs = {}
+    for name, g, c in zip(("new_xyz", "sa_feats", "fp_feats"), gpu, cpu):
+        require(tuple(g.shape) == tuple(c.shape)
+                and bool(torch.isfinite(g).all()),
+                f"pointnet2 {name}: {tuple(g.shape)}")
+        errs[name] = dict(max_abs_err=float((g.cpu() - c).abs().max()),
+                          rel_err=rel_err(g, c))
+        # Tolerances, Frobenius relative: the SA 1e-5 (the card's and the
+        # CPU's float32 matmuls sum in other orders, ~1e-7 relative; a
+        # squared distance that close to radius^2 would move one
+        # neighbour of one ball).  The FP 1e-4: its dense points include
+        # the 512 centres, whose distance to themselves is the square
+        # root of the cancellation residual |x|^2 - 2 x.x + |x|^2 (about
+        # 1e-4, not 0), which the two devices' matmuls leave different, so
+        # those points' inverse-distance weights differ (4.6e-5 measured
+        # on an H100).
+        tol = 1e-4 if name == "fp_feats" else 1e-5
+        require(errs[name]["rel_err"] <= tol,
+                f"pointnet2 {name}: rel err {errs[name]['rel_err']} > {tol}")
+    log(f"pointnet2 SSG SA (8 x 2048 -> 512, r 0.2, 32, [64, 64, 128]) + FP "
+        f"(-> 2048, [128, 128]), float32: card {card_ms:.2f} ms (one call, "
+        f"CUDA events), CPU {cpu_ms:.1f} ms (host clock, this machine's "
+        f"cores), K1 launches {launches}; errors against the CPU {errs} "
+        f"(tolerance 1e-5 relative, the FP's 1e-4)")
+    return dict(card_ms=card_ms, cpu_ms=cpu_ms, k1_launches=launches,
+                errors=errs)
+
+
+def check_native(smi: str, tmp: Path):
+    """The native host library: its build, the demo's render stage through
+    it (and through numpy, in the same run), and 12 VSD depth renders at
+    480 x 640 through each in turns."""
+    import os
+
+    import numpy as np
+
+    from sam6d_tpu_torch.pipeline import renderer
+    from sam6d_tpu_torch.pipeline.make_example import make_example
+    from sam6d_tpu_torch.utils import native
+    from sam6d_tpu_torch.utils.mesh import load_mesh
+
+    lib = native.LIBRARY
+    t0 = time.perf_counter()
+    require(lib.load() is not None,
+            f"native library: {native.build_error()}")
+    load_s = time.perf_counter() - t0
+    log(f"native library {lib.path.relative_to(ROOT)}: g++ build "
+        f"{lib.build_s} s, load {load_s:.3f} s")
+    calls0 = dict(lib.calls)
+
+    # The demo's render stage: 42 views at 420 px of the example cube.
+    cad = make_example(str(tmp / "p10_scene"))
+    rasterized = lib.calls["rasterize"]
+    render_ms = {}
+    for route in ("native", "numpy", "native"):
+        if route == "numpy":
+            os.environ[native.NO_NATIVE_ENV] = "1"
+        try:
+            t0 = time.perf_counter()
+            renderer.render_templates(cad, str(tmp / f"p10_{route}"), 420)
+            render_ms.setdefault(route, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        finally:
+            os.environ.pop(native.NO_NATIVE_ENV, None)
+    require(lib.calls["rasterize"] - rasterized == 84,
+            "native: the render stage did not go through the library")
+
+    # VSD's depth renders: phase 9's tree, each GT pose at 480 x 640.
+    bt = load_helper("bop_tree")
+    ds = tmp / "lmo"
+    rows = bt.gt_pose_rows(ds)
+    scene_dir = sorted((ds / "test").iterdir())[0]
+    cams = json.loads((scene_dir / "scene_camera.json").read_text())
+    K = np.asarray(cams[str(rows[0]["im_id"])]["cam_K"],
+                   np.float64).reshape(3, 3)
+    meshes = {r["obj_id"]: load_mesh(str(ds / "models" /
+                                         f"obj_{r['obj_id']:06d}.ply"))
+              for r in rows}
+    times = {"native": [], "numpy": []}
+    max_disagree = max_depth_err = 0.0
+    for i in range(12):
+        r = rows[i % len(rows)]
+        mesh = meshes[r["obj_id"]]
+        R = np.asarray(r["R"], np.float64).reshape(3, 3)
+        verts = mesh.vertices @ R.T + np.asarray(r["t"])
+        attrs = np.zeros((len(mesh.vertices), 1), np.float32)
+        out = {}
+        for route in (("native", "numpy") if i % 2 == 0
+                      else ("numpy", "native")):
+            fn = (native.rasterize if route == "native"
+                  else renderer.rasterize_numpy)
+            t0 = time.perf_counter()
+            out[route] = fn(verts, mesh.faces, K, (480, 640), attrs)
+            times[route].append((time.perf_counter() - t0) * 1e3)
+        (_, m_n, d_n), (_, m_p, d_p) = out["native"], out["numpy"]
+        both = m_n & m_p
+        require(both.sum() > 100, "native: the object is not in view")
+        max_disagree = max(max_disagree, float((m_n != m_p).mean()))
+        max_depth_err = max(max_depth_err,
+                            float(np.abs(d_n[both] - d_p[both]).max()
+                                  / np.abs(d_p[both]).max()))
+    require(max_disagree <= 2e-3, f"native masks disagree on "
+                                  f"{max_disagree} of the pixels")
+    require(max_depth_err <= 1e-4, f"native depth rel err {max_depth_err}")
+
+    calls = {k: v - calls0.get(k, 0) for k, v in lib.calls.items()}
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(smi)
+    log(f"demo render stage (42 views at 420 px, render_templates): native "
+        + ", ".join(f"{v:.1f}" for v in render_ms["native"])
+        + f" ms, numpy {render_ms['numpy'][0]:.1f} ms (PR 8's numpy: "
+        f"2218.4 ms)")
+    log(f"12 VSD depth renders at 480 x 640 in turns: median native "
+        f"{med['native']:.2f} ms, numpy {med['numpy']:.2f} ms; masks "
+        f"disagree on at most {max_disagree:.2e} of the pixels (limit 2e-3),"
+        f" depth within {max_depth_err:.1e} relative where both cover "
+        f"(limit 1e-4)")
+    log(f"native calls {calls}")
+    return dict(build_s=lib.build_s, render_stage_ms=render_ms,
+                vsd_render_ms=times, vsd_render_median_ms=med,
+                mask_disagree=max_disagree, depth_rel_err=max_depth_err,
+                calls=calls)
+
+
+def check_distributed(dev, tmp: Path, request):
+    """torch.distributed on one card: a one-rank NCCL group, PEMRunner on
+    a 1 x 1 ("dp", "hyp") mesh against the runner without one, the
+    barrier, the shard merge, one step of `train_cli.main` with --tp 1
+    through the distributed code; the group destroyed at the end.  (The
+    group of one rank is started here: `init_distributed` starts none for
+    one process, and then only reports it.)"""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sam6d_tpu_torch.config import default_pem_config
+    from sam6d_tpu_torch.ops import fps, geo_embed, scatter_rows
+    from sam6d_tpu_torch.parallel.distributed import (
+        init_distributed,
+        sync_hosts,
+    )
+    from sam6d_tpu_torch.parallel.mesh import make_mesh
+    from sam6d_tpu_torch.pipeline.bop_eval import write_shard_and_merge
+    from sam6d_tpu_torch.pipeline.pem_runner import PEMRunner
+    from sam6d_tpu_torch.train import train_cli
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        require(init_distributed() and dist.get_backend() == backend,
+                f"the one-rank {backend} group")
+        mesh = make_mesh((1, 1), ("dp", "hyp"), dev.type)
+        cfg = default_pem_config()
+        S, Np = cfg.feature_extraction.img_size, cfg.n_sample_template_point
+        T = cfg.n_template_view
+        rng = np.random.RandomState(3)
+        tem = dict(tem_rgb=rng.rand(T, S, S, 3).astype(np.float32),
+                   tem_pts=(rng.randn(T, Np, 3) * 0.04).astype(np.float32),
+                   tem_choose=rng.randint(0, S * S, (T, Np)).astype(np.int64))
+        t0 = time.perf_counter()
+        plain = PEMRunner(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+        meshed = PEMRunner(cfg, state_dict=plain.model.state_dict(),
+                           device=dev, dtype=torch.bfloat16, mesh=mesh)
+        plain.onboard_arrays(**tem)
+        meshed.tem_pts, meshed.tem_feat = plain.tem_pts, plain.tem_feat
+        meshed.make_template_bank(plain.tem_pts, plain.tem_feat)
+        init_s = time.perf_counter() - t0
+        inp = request(1)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        shape = (1, 3 * cfg.coarse_point_matching.nproposal1, 1)
+        u = tuple(torch.rand(shape, generator=gen, device=dev)
+                  for _ in range(2))
+        for k in (fps.KERNEL, geo_embed.KERNEL):
+            k.launches = 0
+        t0 = time.perf_counter()
+        got = meshed.infer(inp, uniforms=u)
+        torch.cuda.synchronize()
+        mesh_ms = (time.perf_counter() - t0) * 1e3
+        runner_launches = {k.name: k.launches
+                           for k in (fps.KERNEL, geo_embed.KERNEL)}
+        want = plain.infer(inp, uniforms=u)
+        # Warm: the first mesh request also opened NCCL's communicator.
+        # Host clock around each call (infer returns host arrays), in
+        # turns plain, mesh, mesh, plain, ...
+        warm = {"plain": [], "mesh": []}
+        for i in range(8):
+            for name in (("plain", "mesh") if i % 2 == 0
+                         else ("mesh", "plain")):
+                r = plain if name == "plain" else meshed
+                t1 = time.perf_counter()
+                r.infer(inp, uniforms=u)
+                warm[name].append((time.perf_counter() - t1) * 1e3)
+        warm_ms = {k: statistics.median(v) for k, v in warm.items()}
+        for k in runner_launches:
+            require(runner_launches[k] > 0,
+                    f"{k} never ran in the mesh runner's request")
+        diff = max(float(np.abs(got[k] - want[k]).max())
+                   for k in ("pred_R", "pred_t", "pose_score"))
+        # The same kernels on the same inputs and draws (a hyp axis of
+        # one rank solves the whole budget): 1e-5 allows only a
+        # reordered reduction.
+        require(diff <= 1e-5, f"mesh runner differs from the plain runner "
+                              f"by {diff}")
+        del plain, meshed
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        sync_hosts("phase 10")
+        barrier_ms = (time.perf_counter() - t0) * 1e3
+        rows = [{"scene_id": 0, "im_id": i} for i in range(3)]
+        merged = write_shard_and_merge(str(tmp / "p10_merge"), rows,
+                                       prefix="pem_shard",
+                                       merged_name="merged.json")
+        require(merged == rows, f"merge under the group: {merged}")
+
+        # One step of the CLI's entry point (init_distributed finds the
+        # group; mesh (1, 1), shard_train_state, the parallel step) at
+        # batch 4, the step recorded through the train_step it looks up.
+        kernels = [fps.KERNEL, geo_embed.KERNEL, geo_embed.KERNEL_BWD,
+                   scatter_rows.KERNEL]
+        metrics, before = [], []
+        train_step = train_cli.train_step
+
+        def step(state, batch, generator):
+            before.extend(p.detach().clone()
+                          for p in list(state.model.parameters())[:8])
+            metrics.append(train_step(state, batch, generator))
+            return metrics[-1]
+
+        train_cli.train_step = step
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            solver = train_cli.main([
+                "--synthetic", "--steps", "1", "--epochs", "1",
+                "--batch_size", "4", "--tp", "1", "--log_dir",
+                str(tmp / "p10_train"), "--device", str(dev)])
+        finally:
+            train_cli.train_step = train_step
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = {k.name: k.launches for k in kernels}
+        require(solver.state.parallel is not None
+                and solver.state.parallel.dp == 1, "train_cli's mesh")
+        require(len(metrics) == 1 and all(math.isfinite(v)
+                                          for v in metrics[0].values()),
+                f"train_cli step metrics {metrics}")
+        params = list(solver.state.model.parameters())
+        require(metrics[0]["update_skipped"] == 0.0
+                and any(not torch.equal(b, p) for b, p in zip(before, params)),
+                "train_cli step: no update applied")
+        for k, n in train_launches.items():
+            require(n > 0, f"{k} never ran in the train_cli step")
+        del solver, params, before
+    finally:
+        dist.destroy_process_group()
+    require(not dist.is_initialized(), "the group was not destroyed")
+    log(f"one-rank {backend} group: PEMRunner on a 1 x 1 (dp, hyp) mesh equals "
+        f"the plain runner (max diff {diff}), first request {mesh_ms:.1f} "
+        f"ms, warm median {warm_ms['mesh']:.2f} ms against the plain "
+        f"runner's {warm_ms['plain']:.2f} ms (8 each, in turns), launches "
+        f"{runner_launches}; runners and bank {init_s:.1f} s; "
+        f"sync_hosts {barrier_ms:.2f} ms; merge of 3 rows; train_cli.main "
+        f"--tp 1 step at batch 4 (loss {metrics[0]['loss']:.4f}, grad norm "
+        f"{metrics[0]['grad_norm']:.4f}) {train_s:.1f} s with its "
+        f"checkpoint, launches {train_launches}")
+    return dict(mesh_request_ms=mesh_ms, warm_request_ms=warm,
+                runner_launches=runner_launches,
+                barrier_ms=barrier_ms, train_s=train_s,
+                train_metrics=metrics[0], train_launches=train_launches)
+
+
+def check_tooling(dev, tmp: Path, request):
+    """`profiling.trace` around one PEM request names its `annotate`
+    span; `debug_tap` with its variable set writes the tensor."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch.config import default_pem_config
+    from sam6d_tpu_torch.ops.debug import DEBUG_ENV, debug_tap
+    from sam6d_tpu_torch.pipeline.pem_runner import PEMRunner
+    from sam6d_tpu_torch.utils import profiling
+
+    cfg = default_pem_config()
+    runner = PEMRunner(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    T, S = cfg.n_template_view, cfg.feature_extraction.img_size
+    Np = cfg.n_sample_template_point
+    rng = np.random.RandomState(5)
+    runner.onboard_arrays(
+        rng.rand(T, S, S, 3).astype(np.float32),
+        (rng.randn(T, Np, 3) * 0.04).astype(np.float32),
+        rng.randint(0, S * S, (T, Np)).astype(np.int64))
+    inp = request(1)
+    runner.infer(inp)
+    trace_dir = tmp / "p10_trace"
+    with profiling.trace(str(trace_dir)):
+        with profiling.annotate("phase10_pem_request"):
+            runner.infer(inp)
+    traces = list(trace_dir.glob("trace_*.json"))
+    require(len(traces) == 1, f"profiling.trace wrote {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    require(any(e.get("name") == "phase10_pem_request" for e in events),
+            "the trace does not name the annotate span")
+    n_device = sum(1 for e in events if e.get("cat") == "kernel")
+    x = torch.randn(4, 5, device=dev)
+    os.environ[DEBUG_ENV] = "1"
+    try:
+        require(debug_tap(x, "phase10", str(tmp / "p10_taps")) is x,
+                "debug_tap is not the identity")
+    finally:
+        del os.environ[DEBUG_ENV]
+    saved = np.load(tmp / "p10_taps" / "torch_debug_node_phase10.npy")
+    require(np.array_equal(saved, x.cpu().numpy()), "debug_tap's file")
+    log(f"profiling.trace: {traces[0].stat().st_size} bytes, "
+        f"{len(events)} events ({n_device} device kernels), the span named; "
+        f"debug_tap wrote the tensor")
+    return dict(trace_bytes=traces[0].stat().st_size, trace_events=len(events),
+                trace_kernels=n_device)
+
+
+def phase_last_modules(dev, smi: str, tmp: Path, request):
+    """Phase 10: the modules ported last; see the module docstring."""
+    t0 = time.perf_counter()
+    out = dict(pointnet2=check_pointnet2(dev), native=check_native(smi, tmp),
+               distributed=check_distributed(dev, tmp, request),
+               tooling=check_tooling(dev, tmp, request))
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 10 wall {out['wall_s']:.1f} s")
+    return out
 
 
 def main():
@@ -2712,6 +3127,18 @@ def main():
         torch.cuda.empty_cache()
         log("== phase 9: BOP evaluation at full width")
         bop = phase_bop(dev, smi, Path(tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== phase 10: pointnet2, the native library, torch.distributed "
+            "on one card, profiling and the debug tap")
+        last = phase_last_modules(dev, smi, Path(tmp), request)
+
+    d = last["distributed"]
+    phase10_launches = {k: d["runner_launches"].get(k, 0)
+                        + d["train_launches"].get(k, 0)
+                        for k in set(d["runner_launches"])
+                        | set(d["train_launches"])}
+    phase10_launches[fps.KERNEL.name] += last["pointnet2"]["k1_launches"]
 
     def entry(kernel, rows, main_row, launches, library=None):
         main = rows[main_row]
@@ -2731,6 +3158,7 @@ def main():
             "launches_fastsam_demo": weights["launches"][kernel.name],
             **({"launches_train_data": train_data["launches"][kernel.name]}
                if kernel.name in train_data["launches"] else {}),
+            "launches_phase10": phase10_launches.get(kernel.name, 0),
         }
 
     # Main rows: FPS of one instance (2048 -> 196) and the bf16 embedding
@@ -2772,7 +3200,7 @@ def main():
          "build_s": build_s, "ptxas": ptxas, "tiny_bf16": tiny_bf16, "tiny_train": tiny_train,
          "tiny_fastsam": tiny_fs, "slice": sl, "ism": ism, "train": train,
          "demo": demo_run, "weights": weights, "train_data": train_data,
-         "bop": bop,
+         "bop": bop, "last_modules": last,
          **report}, indent=1))
     log(smi)
     print(json.dumps(report))

@@ -69,12 +69,15 @@ class BatchNorm(nn.Module):
         self.momentum = momentum
         self.dtype = dtype
 
+    def _moments(self, xf, axes):
+        """The batch's mean and mean of squares over `axes`."""
+        return xf.mean(axes), (xf * xf).mean(axes)
+
     def forward(self, x, train: bool = False):
         xf = x.float()
         if train:
-            axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            mean, sq = self._moments(xf, tuple(range(x.dim() - 1)))
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

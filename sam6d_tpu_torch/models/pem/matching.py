@@ -70,13 +70,16 @@ def compute_coarse_Rt(atten, pts1, pts2, model_pts=None,
                       n_proposal1: int = 6000, n_proposal2: int = 300,
                       score_chunk: int = 50, dist_field=None,
                       n_refine: int = 32,
-                      uniforms=None, generator=None):
+                      uniforms=None, generator=None,
+                      return_score: bool = False):
     """Hypothesis-sampled coarse pose from the (B, 1+N1, 1+N2) attention.
 
     uniforms: optional (u1, u2), each (B, 3 * n_proposal1, 1), for the
     hypothesis draws; else they come from `generator`.
 
-    Returns (R, t): pts1 ~ pts_model @ R^T + t (normalised space).
+    Returns (R, t): pts1 ~ pts_model @ R^T + t (normalised space), and
+    with `return_score` the winner's score (B,) as a third value (the
+    hypothesis-parallel solve compares it across ranks).
     """
     B = atten.shape[0]
     if model_pts is None:
@@ -125,6 +128,8 @@ def compute_coarse_Rt(atten, pts1, pts2, model_pts=None,
         ], dim=1)
     best = torch.argmax(hyp_scores, dim=1)
     rows = torch.arange(B, device=atten.device)
+    if return_score:
+        return Rs[rows, best], ts[rows, best], hyp_scores[rows, best]
     return Rs[rows, best], ts[rows, best]
 
 
@@ -163,6 +168,18 @@ def _rot(c, s, axis: int):
     return torch.stack(rows, dim=-1).reshape(-1, 3, 3)
 
 
+def draw_pose_noise(B: int, generator, device,
+                    std_rots=(15.0, 10.0, 5.0, 1.25, 1.0)):
+    """`aug_pose_noise`'s draws for a batch of B, in its order: the
+    rotation std (one for the batch), n_rot (B, 3), n_trans (B, 3)."""
+    pick = torch.randint(len(std_rots), (1,), generator=generator,
+                         device=device)
+    std_rot = torch.tensor(std_rots, device=device)[pick]
+    n_rot = torch.randn(B, 3, generator=generator, device=device)
+    n_trans = torch.randn(B, 3, generator=generator, device=device)
+    return std_rot, n_rot, n_trans
+
+
 def aug_pose_noise(gt_r, gt_t, noise=None, generator=None,
                    std_rots=(15.0, 10.0, 5.0, 1.25, 1.0), max_rot=45.0,
                    sel_std_trans=(0.2, 0.2, 0.2), max_trans=0.8):
@@ -172,15 +189,10 @@ def aug_pose_noise(gt_r, gt_t, noise=None, generator=None,
     noise: optional (std_rot, n_rot (B, 3), n_trans (B, 3)): the rotation
     std in degrees, picked from `std_rots`, and two standard-normal draws;
     else they are drawn from `generator`.  Returns (R, t)."""
-    B, dev = gt_r.shape[0], gt_r.device
+    dev = gt_r.device
     if noise is None:
-        pick = torch.randint(len(std_rots), (1,), generator=generator,
-                             device=dev)
-        std_rot = torch.tensor(std_rots, device=dev)[pick]
-        n_rot = torch.randn(B, 3, generator=generator, device=dev)
-        n_trans = torch.randn(B, 3, generator=generator, device=dev)
-    else:
-        std_rot, n_rot, n_trans = noise
+        noise = draw_pose_noise(gt_r.shape[0], generator, dev, std_rots)
+    std_rot, n_rot, n_trans = noise
     angles = torch.clamp(n_rot * std_rot, -max_rot, max_rot) * (math.pi / 180.0)
     c, s = torch.cos(angles), torch.sin(angles)
     rand_rot = (_rot(c[:, 0], s[:, 0], 2) @ _rot(c[:, 1], s[:, 1], 0)
@@ -206,11 +218,15 @@ class CoarsePointMatching(nn.Module):
 
     def forward(self, p1, f1, geo1, p2, f2, geo2, radius, model_pts,
                 dist_field=None, uniforms=None, generator=None,
-                train: bool = False, gt_r=None, gt_t=None, noise=None):
+                train: bool = False, gt_r=None, gt_t=None, noise=None,
+                solver=None):
         """-> (init_R, init_t, attention maps).  Serving solves the coarse
         pose from the last block's map (hypothesis draws from `uniforms`
-        or `generator`); training returns every block's map and the
-        ground-truth pose (gt_t radius-normalised) perturbed by
+        or `generator`) with `compute_coarse_Rt`, or with `solver`
+        (atten, p1, p2, norm_model, dist_field, uniforms, generator) ->
+        (R, t) where one is given (the hypothesis-parallel solve,
+        `parallel/hyp_parallel.py`); training returns every block's map
+        and the ground-truth pose (gt_t radius-normalised) perturbed by
         `aug_pose_noise` (draws from `noise` or `generator`)."""
         cfg = self.cfg
         B = f1.shape[0]
@@ -231,6 +247,10 @@ class CoarsePointMatching(nn.Module):
             init_R, init_t = aug_pose_noise(gt_r, gt_t, noise, generator)
             return init_R, init_t, attens
         norm_model = model_pts / (radius[:, None, None] + 1e-6)
+        if solver is not None:
+            init_R, init_t = solver(attens[-1], p1, p2, norm_model,
+                                    dist_field, uniforms, generator)
+            return init_R, init_t, attens
         init_R, init_t = compute_coarse_Rt(
             attens[-1], p1, p2, norm_model, cfg.nproposal1, cfg.nproposal2,
             dist_field=dist_field, uniforms=uniforms, generator=generator,
@@ -250,6 +270,9 @@ class SharedMLP(nn.Module):
             self.add_module(f"dense_{i}",
                             Dense(dims[i], dims[i + 1], bias=False, dtype=dtype))
             self.add_module(f"bn_{i}", BatchNorm(dims[i + 1], dtype))
+
+    def forward(self, x, train: bool = False):
+        return self.tail(self.first_dense(x), train)
 
     def first_dense(self, x):
         return self.dense_0(x)

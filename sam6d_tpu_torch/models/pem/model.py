@@ -94,13 +94,17 @@ class PEM(nn.Module):
 
     @torch.inference_mode()
     def forward_with_bank(self, pts, rgb, rgb_choose, model_pts, bank,
-                          generator=None, uniforms=None):
+                          generator=None, uniforms=None, coarse_solver=None):
         """Per-request forward.
 
         pts (B, N, 3) observed cloud (metric), rgb (B, S, S, 3),
         rgb_choose (B, N), model_pts (B, M, 3).  uniforms: optional
         (u1, u2), each (B, 3 * nproposal1, 1), for the coarse hypothesis
-        draws; else drawn from `generator`.
+        draws; else drawn from `generator`.  coarse_solver: optional
+        replacement of the coarse hypothesis solve, (atten, p1, p2,
+        norm_model, dist_field, uniforms, generator) -> (R, t), e.g. the
+        hypothesis-parallel `parallel/hyp_parallel.py` (the JAX
+        forward_with_bank's `coarse_solver`).
         """
         B = pts.shape[0]
 
@@ -120,7 +124,7 @@ class PEM(nn.Module):
             sparse_pm, sparse_fm, geo_m, tile(bank["sparse_po"]),
             tile(bank["sparse_fo"]), geo_o, radius, model_pts,
             dist_field=bank["dist_field"], uniforms=uniforms,
-            generator=generator,
+            generator=generator, solver=coarse_solver,
         )
         pred_R, pred_t, score, _ = self.fine_point_matching(
             dense_pm, dense_fm, geo_m, fps_idx_m, tile(bank["dense_po_n"]),

@@ -169,9 +169,13 @@ class LinearAttention(nn.Module):
         self.num_heads = num_heads
         self.focusing_factor = focusing_factor
 
+    @staticmethod
+    def _norm(x):  # over the channels
+        return torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
     def _focus(self, x, scale):
         x = (F.relu(x.float()) + 1e-6) / scale
-        x_norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+        x_norm = self._norm(x)
         ff = self.focusing_factor
         if float(ff).is_integer() and 1 <= int(ff) <= 4:
             y = x
@@ -179,7 +183,7 @@ class LinearAttention(nn.Module):
                 y = y * x
         else:
             y = x ** ff
-        return y / torch.linalg.vector_norm(y, dim=-1, keepdim=True) * x_norm
+        return y / self._norm(y) * x_norm
 
     def forward(self, q_in, k_in, v_in):
         H = self.num_heads

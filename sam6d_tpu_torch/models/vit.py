@@ -64,10 +64,14 @@ class Attention(nn.Module):
         self.use_flash = use_flash
 
     def forward(self, x):
-        B, N, C = x.shape
+        B, N, _ = x.shape
         H = self.num_heads
-        hd = C // H
-        qkv = self.qkv(x).reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+        # The head width from the projection, as the PEM's attentions
+        # take it (`models/pem/transformer.py`).
+        qkv = self.qkv(x)
+        hd = qkv.shape[-1] // (3 * H)
+        C = H * hd
+        qkv = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, N, hd)
         if self.use_flash:
             def flat(t):

@@ -44,6 +44,35 @@ def compute_feature_similarity(feat1, feat2, sim_type: str = "cosine",
     return atten.float() / temp
 
 
+def transform_points(pts: torch.Tensor, R: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+    """Rigid transform p' = R p + t of (..., N, 3) points by R (..., 3, 3)
+    and t (..., 3)."""
+    return torch.einsum("...ij,...nj->...ni", R, pts) + t[..., None, :]
+
+
+def inverse_transform_points(pts: torch.Tensor, R: torch.Tensor,
+                             t: torch.Tensor) -> torch.Tensor:
+    """Inverse rigid transform p' = R^T (p - t), the reference's
+    `(pts - t) @ R` with points as row vectors (model_utils.py:267,
+    fine_point_matching.py:45), R mapping the model frame to the camera
+    frame."""
+    return torch.einsum("...nj,...ji->...ni", pts - t[..., None, :], R)
+
+
+def depth_to_pointcloud(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Metric depth (H, W) and intrinsics (3, 3) -> the organised (H, W, 3)
+    float32 cloud (reference utils/data_utils.py:92-110)."""
+    H, W = depth.shape
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    xmap = torch.arange(W, dtype=torch.float32, device=depth.device)[None, :]
+    ymap = torch.arange(H, dtype=torch.float32, device=depth.device)[:, None]
+    z = depth.float()
+    x = (xmap - cx) * z / fx
+    y = (ymap - cy) * z / fy
+    return torch.stack([x, y, z], dim=-1)
+
+
 def project_points(pts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """Camera-frame points (..., N, 3) and intrinsics (3, 3) -> (..., N, 2)
     (u, v) pixel coordinates."""

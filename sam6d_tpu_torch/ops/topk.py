@@ -13,7 +13,7 @@ import torch
 
 
 def top_k_indices(score: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the min(k, n) largest entries of a 1-D `score`, largest
-    first, equal scores lowest index first."""
-    order = torch.sort(score, descending=True, stable=True).indices
-    return order[:k]
+    """Indices of the min(k, n) largest entries along the last axis of
+    `score`, largest first, equal scores lowest index first."""
+    order = torch.sort(score, dim=-1, descending=True, stable=True).indices
+    return order[..., :k]

@@ -12,6 +12,9 @@ The port's submodules carry the flax names, so a flax leaf
   ConvTranspose kernels, the rel-pos tables, the Fourier matrix, the
   LayerScale `gamma` and the linear-attention `scale`.
 
+The pointnet2 modules' trees (`mlp/dense_i/kernel`, `mlp/bn_i/scale`,
+`bias` and `batch_stats`) map the same way into
+`ops/pointnet2_modules.py`'s `PointnetSAModule` / `PointnetFPModule`.
 `sam_state_dict` maps the JAX SAM's three trees (encoder, prompt,
 decoder) at once; the DINOv2 tree maps as it is, into
 `DescriptorModel.vit`, and FastSAM's (`params` and `batch_stats`) into

@@ -7,11 +7,11 @@ Each frame's detections go through `BOPTestset`, are grouped by object
 and posed by `PEMRunner.infer` against that object's template bank; the
 banks are kept per object, so an object is onboarded once per sweep.
 
-One process runs the sweep, rank 0 of 1.  The merge needs a barrier
-across ranks (the JAX package's `parallel.distributed.sync_hosts`),
-which the port does not have yet (D1 in ROADMAP.md), so with
-`torch.distributed` initialised over more than one rank the sweep raises
-`NotImplementedError` instead of merging a partial set of shards.
+With `torch.distributed` initialised (`parallel.distributed.
+init_distributed`; e.g. `torchrun --nproc_per_node N`), each rank poses
+its round-robin share of the frames and writes its shard; a barrier
+(`sync_hosts`) then lets rank 0 merge every shard.  Without it one
+process is rank 0 of 1.
 
 Output: BOP-format pose rows (scene_id, im_id, obj_id, score, R, t in
 mm, time), the merged json and `result_bop.csv`.  `time` is the time
@@ -29,6 +29,11 @@ import time
 import numpy as np
 
 from sam6d_tpu_torch.config import PEMConfig
+from sam6d_tpu_torch.parallel.distributed import (
+    process_count,
+    process_index,
+    sync_hosts,
+)
 from sam6d_tpu_torch.pipeline.pem_runner import PEMRunner
 from sam6d_tpu_torch.provider.bop import BOPTestset, load_objects
 
@@ -39,21 +44,9 @@ def shard_frames(frames: list, process_index: int, process_count: int):
 
 
 def process_rank() -> tuple[int, int]:
-    """(rank, count) of this process: (0, 1) unless `torch.distributed`
-    is initialised.  More than one rank raises: the merge's barrier is
-    not ported (D1 in ROADMAP.md)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        rank, count = dist.get_rank(), dist.get_world_size()
-    else:
-        rank, count = 0, 1
-    if count > 1:
-        raise NotImplementedError(
-            f"a BOP sweep over {count} ranks needs the barrier before the "
-            "shard merge (the JAX package's parallel.distributed."
-            "sync_hosts), which is not ported yet: D1 in ROADMAP.md")
-    return rank, count
+    """(rank, count) of this process in the `torch.distributed` world;
+    (0, 1) when it is not initialised."""
+    return process_index(), process_count()
 
 
 def run_bop_eval(cfg: PEMConfig, dataset_dir: str, detections_path: str,
@@ -67,8 +60,9 @@ def run_bop_eval(cfg: PEMConfig, dataset_dir: str, detections_path: str,
     uniforms: None, or a function of the bucket size that returns the
     hypothesis uniforms (u1, u2) of `PEMRunner.infer`; every call of the
     JAX runner reuses one key, so a test can pass that key's draws.
-    Writes the shard json, the merged `detection_pem_bop.json` and
-    `result_bop.csv`; returns the merged rows."""
+    Writes the shard json, and on rank 0 the merged
+    `detection_pem_bop.json` and `result_bop.csv`; returns the merged
+    rows on rank 0, this rank's own elsewhere."""
     process_index, process_count = process_rank()
     objects = load_objects(os.path.join(dataset_dir, "models"),
                            n_sample=cfg.n_sample_model_point,
@@ -124,21 +118,27 @@ def run_bop_eval(cfg: PEMConfig, dataset_dir: str, detections_path: str,
 
     merged = write_shard_and_merge(output_dir, rows, prefix="pem_shard",
                                    merged_name="detection_pem_bop.json")
+    if merged is None:
+        return rows
     write_bop_csv(merged, os.path.join(output_dir, "result_bop.csv"))
     return merged
 
 
 def write_shard_and_merge(output_dir: str, rows: list, prefix: str,
                           merged_name: str):
-    """The filesystem result collective: this rank writes
-    `<prefix>_<rank>.json`, then rank 0 globs the shards and writes the
-    merged list.  One rank only (`process_rank`); returns the merged
-    rows."""
+    """The filesystem result collective: every rank writes
+    `<prefix>_<rank>.json`, all ranks meet at a barrier (`sync_hosts`;
+    without it rank 0 could glob before the others have written), then
+    rank 0 globs the shards and writes the merged list.  Returns the
+    merged rows on rank 0, None elsewhere."""
     rank, _ = process_rank()
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, f"{prefix}_{rank:04d}.json"),
               "w") as f:
         json.dump(rows, f)
+    sync_hosts(f"{prefix}-merge")
+    if rank != 0:
+        return None
     merged = []
     for p in sorted(glob.glob(os.path.join(output_dir, f"{prefix}_*.json"))):
         with open(p) as f:

@@ -23,8 +23,9 @@ below the visibility cutoff stay matchable but are excluded from the
 recall's numerator and denominator.
 
 Numpy float64 on the host, as in the JAX package, so the recalls are
-equal to its.  The depth maps of VSD are rendered by the port's numpy
-rasterizer (`pipeline/renderer.rasterize_numpy`), the scene depth is
+equal to its.  The depth maps of VSD are rendered by the port's
+`pipeline/renderer.rasterize` (the native library, else numpy, as the
+JAX scorer), the scene depth is
 read with `utils/png.py`, and MSPD's image width comes from the frame's
 file header (`utils/image_header.py`), in the JAX package's order of
 files and with its 2 * cx fallback.
@@ -46,7 +47,7 @@ import os
 
 import numpy as np
 
-from sam6d_tpu_torch.pipeline.renderer import rasterize_numpy
+from sam6d_tpu_torch.pipeline import renderer
 from sam6d_tpu_torch.utils import image_header
 from sam6d_tpu_torch.utils.mesh import load_mesh
 from sam6d_tpu_torch.utils.png import read_png
@@ -139,7 +140,7 @@ def mspd(R_est, t_est, R_gt, t_gt, pts, syms, K) -> float:
 
 def _render_depth(mesh, R, t_mm, K, hw):
     verts_cam = mesh.vertices @ R.T + t_mm
-    _, mask, depth = rasterize_numpy(
+    _, mask, depth = renderer.rasterize(
         verts_cam, mesh.faces, K, hw,
         np.zeros((len(mesh.vertices), 1), np.float32),
     )

@@ -3,7 +3,8 @@
 Counterpart of `sam6d_tpu/pipeline/ism_eval.py` (reference Instance_
 Segmentation_Model/run_inference.py:9-80): onboard every object of the
 dataset, detect on every test frame, write BOP23 detection json.  The
-frames are sharded and merged as in `pipeline/bop_eval.py` (one rank).
+frames are sharded over the `torch.distributed` ranks and merged as in
+`pipeline/bop_eval.py`.
 The detector's descriptor cache is the port's `ReferenceData` `.npz`
 (`ism_descriptors.npz`), where the JAX package pickles it.
 """
@@ -41,8 +42,9 @@ def run_ism_eval(detector, dataset_dir: str, template_root: str,
     BOPTemplate); "pbr" builds the banks from the dataset's train_pbr
     images (reference BOPTemplatePBR).
 
-    Writes `ism_shard_0000.json` and the merged `detection_ism_bop.json`;
-    returns the merged rows, each `time` the frame's detect time in s."""
+    Writes this rank's `ism_shard_<rank>.json`, and on rank 0 the merged
+    `detection_ism_bop.json`; returns the merged rows on rank 0 (this
+    rank's own elsewhere), each `time` the frame's detect time in s."""
     process_index, process_count = process_rank()
     objects = load_objects(os.path.join(dataset_dir, "models"),
                            n_sample=detector.cfg.pointcloud_sample_num,
@@ -87,5 +89,6 @@ def run_ism_eval(detector, dataset_dir: str, template_root: str,
                                           for i in dets.object_ids])
         rows.extend(dets.to_bop23(scene_id, im_id, runtime=dt,
                                   object_id_offset=0))
-    return write_shard_and_merge(output_dir, rows, prefix="ism_shard",
-                                 merged_name="detection_ism_bop.json")
+    merged = write_shard_and_merge(output_dir, rows, prefix="ism_shard",
+                                   merged_name="detection_ism_bop.json")
+    return merged if merged is not None else rows

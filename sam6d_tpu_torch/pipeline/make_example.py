@@ -22,7 +22,7 @@ import numpy as np
 
 from sam6d_tpu_torch.pipeline.renderer import (
     compute_vertex_normals,
-    rasterize_numpy,
+    rasterize,
 )
 from sam6d_tpu_torch.provider.training_dataset import random_rotation
 from sam6d_tpu_torch.utils.mesh import TriMesh, load_mesh
@@ -105,8 +105,7 @@ def make_example(
         else np.full((len(mesh.vertices), 3), 0.6, np.float32)
     )
     attrs = np.concatenate([colors * shade, verts_cam], axis=1)
-    attr_img, mask, _ = rasterize_numpy(verts_cam, mesh.faces, K, (H, W),
-                                        attrs)
+    attr_img, mask, _ = rasterize(verts_cam, mesh.faces, K, (H, W), attrs)
 
     # Background: gradient + noise, flat far plane depth.
     bg = (

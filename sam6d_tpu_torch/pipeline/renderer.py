@@ -8,11 +8,11 @@ rgb_<i>.png, mask_<i>.png and xyz_<i>.npy (object-frame coordinates in
 mm, float16; the JAX package's stated deviation from the reference's
 NOCS values, render_custom_templates.py:105).
 
-The JAX renderer takes its C++ rasterizer (native/src/rasterizer.cpp)
-when that is built and this numpy rasterizer otherwise; the port renders
-with its copy of the numpy rasterizer only, and writes the PNGs with its
-own codec.  Lambertian shading with a headlight, vertex colours if the
-mesh has them.
+`rasterize` takes the C++ rasterizer (native/src/rasterizer.cpp, built
+by the port's own loader `utils/native.py`) when it loads and the numpy
+rasterizer otherwise, as the JAX renderer does; the PNGs are written with
+the port's own codec.  Lambertian shading with a headlight, vertex
+colours if the mesh has them.
 """
 
 from __future__ import annotations
@@ -21,9 +21,21 @@ import os
 
 import numpy as np
 
+from sam6d_tpu_torch.utils import native
 from sam6d_tpu_torch.utils.mesh import TriMesh, load_mesh
 from sam6d_tpu_torch.utils.png import write_png
 from sam6d_tpu_torch.utils.template_poses import get_camera_poses
+
+
+def rasterize(verts_cam: np.ndarray, faces: np.ndarray, K: np.ndarray,
+              hw: tuple[int, int], vert_attrs: np.ndarray):
+    """Z-buffer rasterization: the native library when it loads, else
+    `rasterize_numpy`; the same contract either way (they differ on
+    boundary pixels only, tests/test_torch_native.py)."""
+    out = native.rasterize(verts_cam, faces, K, hw, vert_attrs)
+    if out is not None:
+        return out
+    return rasterize_numpy(verts_cam, faces, K, hw, vert_attrs)
 
 
 def rasterize_numpy(
@@ -159,9 +171,8 @@ def render_templates(
         rgb_attr = colors * shade
         attrs = np.concatenate([rgb_attr, mesh.vertices], axis=1)  # (V, 6)
 
-        attr_img, mask, _ = rasterize_numpy(
-            verts_cam, mesh.faces, K, (S, S), attrs
-        )
+        attr_img, mask, _ = rasterize(verts_cam, mesh.faces, K, (S, S),
+                                      attrs)
         rgb = (np.clip(attr_img[..., :3], 0, 1) * 255).astype(np.uint8)
         xyz_mm = attr_img[..., 3:6]
 

@@ -11,8 +11,8 @@ files and seeds give the same samples.
 * `MegaPoseDataset` reads the reference's web-shard layout (reference
   Pose_Estimation_Model/provider/training_dataset.py:32-312).
 * `RenderedPoseDataset` renders learnable samples of procedural
-  NOCS-coloured meshes with the port's numpy rasterizer: no external
-  data.
+  NOCS-coloured meshes with the port's rasterizer
+  (`pipeline/renderer.rasterize`): no external data.
 * `SyntheticPoseDataset` draws random objects and random images.
 
 Every sample is in the raw-template layout `train.state.train_step`
@@ -316,7 +316,7 @@ def _render_view(mesh, R_w2c, t_w2c_mm, K, hw):
     colours."""
     from sam6d_tpu_torch.pipeline.renderer import (
         compute_vertex_normals,
-        rasterize_numpy,
+        rasterize,
     )
 
     verts_cam = mesh.vertices @ R_w2c.T + t_w2c_mm
@@ -324,8 +324,7 @@ def _render_view(mesh, R_w2c, t_w2c_mm, K, hw):
     shade = np.clip(-normals_cam[:, 2], 0.2, 1.0)[:, None]
     colors = mesh.vertex_colors.astype(np.float32) / 255.0
     attrs = np.concatenate([colors * shade, mesh.vertices], axis=1)
-    attr_img, mask, depth = rasterize_numpy(verts_cam, mesh.faces, K, hw,
-                                            attrs)
+    attr_img, mask, depth = rasterize(verts_cam, mesh.faces, K, hw, attrs)
     rgb = (np.clip(attr_img[..., :3], 0, 1) * 255).astype(np.uint8)
     return rgb, mask, attr_img[..., 3:6], depth
 
@@ -336,7 +335,7 @@ class RenderedPoseDataset:
     The MegaPose sample path (masked depth back-projection, the radius
     outlier filter, fixed-count resampling, template crops with
     object-frame xyz, rotation and translation augmentation) on frames
-    that the numpy rasterizer renders of procedural NOCS-coloured meshes:
+    that the port's rasterizer renders of procedural NOCS-coloured meshes:
     training needs no external data.  Each object's template views are
     rendered once, here; a sample draws 2 of them, `template_arrays` gives
     the whole bank.  Sample i depends only on (seed, i), so worker

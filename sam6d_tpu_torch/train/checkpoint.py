@@ -63,13 +63,25 @@ def restore_train_state(ckpt_dir: str, state, step: int | None = None):
 def save_params(path: str, model) -> str:
     """Write a module's (or a state dict's) weights as the port's `.npz`
     state dict; returns the file's path (`.npz` appended if missing, as
-    numpy does)."""
-    state = model.state_dict() if hasattr(model, "state_dict") else model
+    numpy does).  A module laid out over ranks
+    (`parallel.sharding.shard_train_state`) is gathered to its full
+    weights, and rank 0 writes them, so that `PEMRunner.load_params`
+    reads them as any other: every rank calls it, and it returns once
+    the file is written."""
+    from sam6d_tpu_torch.parallel.distributed import process_index, sync_hosts
+    from sam6d_tpu_torch.parallel.sharding import unsharded_state_dict
+
+    if isinstance(model, torch.nn.Module):
+        state = unsharded_state_dict(model)
+    else:
+        state = model
     path = os.fspath(path)
     if not path.endswith(".npz"):
         path += ".npz"
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    save_npz(state, path)
+    if process_index() == 0:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        save_npz(state, path)
+    sync_hosts("save-params")
     return path
 
 

@@ -29,6 +29,7 @@ import torch
 
 from sam6d_tpu_torch.config import TrainConfig
 from sam6d_tpu_torch.device import resolve_device
+from sam6d_tpu_torch.parallel.distributed import process_index, sync_hosts
 from sam6d_tpu_torch.provider.training_dataset import collate
 from sam6d_tpu_torch.train.checkpoint import (
     restore_train_state,
@@ -269,8 +270,23 @@ class Solver:
         dev = next(state.model.parameters()).device
         self.generator = torch.Generator(device=dev).manual_seed(cfg.rd_seed)
 
-    def resume(self, ckpt_dir: str | None = None):
+    def _ckpt_dir(self, ckpt_dir: str | None = None) -> str:
+        """`<log_dir>/ckpt`; under tensor parallelism each tp slice's
+        state goes to its own `tp<index>` directory within it."""
         ckpt_dir = ckpt_dir or os.path.join(self.log_dir, "ckpt")
+        par = self.state.parallel
+        if par is not None and par.tp > 1:
+            ckpt_dir = os.path.join(ckpt_dir, f"tp{par.tp_index}")
+        return ckpt_dir
+
+    def _writes(self) -> bool:
+        """One rank writes each file: the first dp rank of each tp slice
+        (its dp replicas hold the same state), else rank 0."""
+        par = self.state.parallel
+        return process_index() == 0 if par is None else par.dp_index == 0
+
+    def resume(self, ckpt_dir: str | None = None):
+        ckpt_dir = self._ckpt_dir(ckpt_dir)
         try:
             restore_train_state(ckpt_dir, self.state)
             self.logger.info(f"resumed from {ckpt_dir} at step "
@@ -289,7 +305,9 @@ class Solver:
                     obj.reset()
                     break
             self.train_epoch(epoch)
-            save_train_state(os.path.join(self.log_dir, "ckpt"), self.state)
+            if self._writes():
+                save_train_state(self._ckpt_dir(), self.state)
+            sync_hosts("solver-checkpoint")
         return self.state
 
     def train_epoch(self, epoch: int):
@@ -328,5 +346,7 @@ class Solver:
         self.logger.info(
             f"epoch {epoch} iter {it + 1} loss {scalars['loss']:.4f} "
             f"T_data {t_data:.2f}s T_step {t_step:.2f}s")
+        if process_index() != 0:
+            return
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(scalars) + "\n")

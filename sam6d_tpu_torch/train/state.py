@@ -159,7 +159,11 @@ class Optimizer:
 
 class TrainState:
     """The model (float32 parameters, BatchNorm statistics as buffers),
-    its optimizer, the step counter and the loss settings."""
+    its optimizer, the step counter and the loss settings.  `parallel`:
+    this rank's place on a ("dp", "tp") mesh
+    (`parallel.sharding.shard_train_state`), None on one process."""
+
+    parallel = None
 
     def __init__(self, model: PEM, optim_cfg: OptimConfig):
         self.model = model
@@ -212,10 +216,18 @@ def train_step(state: TrainState, batch: dict, generator=None,
     tem_choose (raw templates, through `PEM.train_forward`), gt_r, gt_t.
     The pose-noise draws come from `noise` or `generator`.  On
     non-finite gradients the BatchNorm statistics keep their values from
-    before the step.
+    before the step.  With `state.parallel` the batch (and `noise`) are
+    the global ones: this rank takes its dp rows of them, or of the
+    generator's one draw for the whole batch, and the gradients, the
+    metrics and the norm are those of the whole batch
+    (`parallel/sharding.py`).
     """
     model = state.model
+    par = state.parallel
     dev = next(model.parameters()).device
+    if par is not None:
+        noise = par.pose_noise(len(batch["gt_r"]), generator, dev, noise)
+        batch = par.shard_batch(batch)
     b = _to_device(batch, dev)
     saved = {k: v.clone() for k, v in model.named_buffers()}
     model.zero_grad(set_to_none=True)
@@ -230,10 +242,15 @@ def train_step(state: TrainState, batch: dict, generator=None,
     params = list(model.parameters())
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
-    grad_norm = global_norm(grads)
     names = list(metrics)
-    values = torch.stack([metrics[k].detach().float() for k in names]
-                         + [grad_norm]).tolist()
+    values = torch.stack([metrics[k].detach().float() for k in names])
+    if par is None:
+        grad_norm = global_norm(grads)
+    else:
+        par.reduce_grads(grads)
+        grad_norm = par.grad_norm(params, grads)
+        values = par.mean_over_dp(values)
+    values = torch.cat([values, grad_norm.reshape(1)]).tolist()
     out_metrics = dict(zip(names, values[:-1]))
     gn = values[-1]
     finite = math.isfinite(gn)

@@ -213,20 +213,29 @@ def test_pem_sweep_matches_jax(pem_tree, monkeypatch):
 
 
 def test_pem_sweep_refuses_more_ranks(pem_tree, monkeypatch, tmp_path):
-    """No barrier before the merge yet (D1): more than one rank raises,
-    before any file is written."""
+    """More than one rank used to raise here (no barrier before the
+    merge).  Now, in a world of 2, each rank writes its shard and meets
+    the barrier (`sync_hosts`), and only rank 0 merges: rank 1 returns
+    None and writes no merged file; rank 0 merges both shards in rank
+    order.  The real two-process run is in tests/test_torch_parallel.py."""
     import torch.distributed as dist
 
+    barriers = []
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda: 1)
+    monkeypatch.setattr(t_eval, "sync_hosts", barriers.append)
+    assert t_eval.process_rank() == (1, 2)
+    assert t_eval.write_shard_and_merge(str(tmp_path), [{"a": 1}], "x",
+                                        "x.json") is None
+    assert barriers == ["x-merge"]
+    assert sorted(os.listdir(tmp_path)) == ["x_0001.json"]
     monkeypatch.setattr(dist, "get_rank", lambda: 0)
-    with pytest.raises(NotImplementedError, match="D1"):
-        t_eval.write_shard_and_merge(str(tmp_path), [], "x", "x.json")
-    with pytest.raises(NotImplementedError, match="sync_hosts"):
-        t_eval.run_bop_eval(tiny_config(tc), pem_tree["root"],
-                            pem_tree["det_path"], pem_tree["templates"],
-                            str(tmp_path), runner=object())
-    assert not list(tmp_path.iterdir())
+    merged = t_eval.write_shard_and_merge(str(tmp_path), [{"b": 2}], "x",
+                                          "x.json")
+    assert merged == [{"b": 2}, {"a": 1}]
+    assert json.load(open(tmp_path / "x.json")) == merged
+    assert barriers == ["x-merge", "x-merge"]
 
 
 def test_shard_frames_matches():

@@ -10,7 +10,8 @@ every array of `get_frame_instances`; the PBR scan, the views selected
 and the crops and masks of `load_pbr_onboarding_templates`; the
 rendered template PNGs and xyz).  `image_width` equals PIL's
 `Image.open(p).size[0]`.  The JAX renderer takes the C++ rasterizer when
-it is built; here `sam6d_tpu.utils.native.rasterize` returns None, so
+it is built, and so does the port's; here `sam6d_tpu.utils.native.
+rasterize` and `sam6d_tpu_torch.utils.native.rasterize` return None, so
 both packages render with their numpy rasterizers.
 """
 
@@ -30,6 +31,7 @@ from PIL import Image
 import sam6d_tpu.config as jc
 import sam6d_tpu.utils.native
 import sam6d_tpu_torch.config as tc
+import sam6d_tpu_torch.utils.native
 from sam6d_tpu.pipeline import renderer as j_render
 from sam6d_tpu.provider import bop as j_bop
 from sam6d_tpu.provider import bop_pbr as j_pbr
@@ -342,6 +344,8 @@ def test_render_bop_templates_matches(tree, tmp_path, monkeypatch):
     """Both meshes of the tree, 42 views at 48 px: the PNGs' pixels and
     the xyz arrays equal (the numpy rasterizer on both sides)."""
     monkeypatch.setattr(sam6d_tpu.utils.native, "rasterize",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(sam6d_tpu_torch.utils.native, "rasterize",
                         lambda *a, **k: None)
     models = os.path.join(tree["dataset_dir"], "models")
     j_render.render_bop_templates(models, str(tmp_path / "j"), 48)

@@ -11,8 +11,9 @@ symmetries, a vase a continuous one) with VSD, on the GT poses (AR 1)
 and on deliberately perturbed rows; the csv writer and reader; and the
 CLI's JSON, the port's through `python -m` in a process of its own.
 Tolerance: none, all numpy float64 on the host.  Rasterizer compared:
-the numpy one on both sides (`sam6d_tpu.utils.native.rasterize` returns
-None here, so the JAX renderer does not take the C++ one).
+the numpy one on both sides (`sam6d_tpu.utils.native.rasterize` and
+`sam6d_tpu_torch.utils.native.rasterize` return None here, so neither
+renderer takes the C++ one, whose boundary pixels differ).
 """
 
 import inspect
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 
 import sam6d_tpu.utils.native
+import sam6d_tpu_torch.utils.native
 import tests.test_bop_score as jax_cases
 from sam6d_tpu.pipeline import bop_eval as j_eval
 from sam6d_tpu.pipeline import bop_score as j_score
@@ -42,6 +44,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 @pytest.fixture(autouse=True)
 def numpy_rasterizer(monkeypatch):
     monkeypatch.setattr(sam6d_tpu.utils.native, "rasterize",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(sam6d_tpu_torch.utils.native, "rasterize",
                         lambda *a, **k: None)
 
 

@@ -7,8 +7,9 @@ with zlib.  The numpy copies of JAX modules (mesh IO, template poses, RLE
 decoding, bbox helpers, the numpy rasterizer), the renderer, the example
 scene and the loaders of the PEM and the ISM are held to the JAX
 package's functions on the same files: equal arrays, no tolerance.  The
-JAX renderer and example scene take the C++ rasterizer when it is built;
-here they are sent through their numpy rasterizer, which the port copies.
+JAX renderer and example scene take the C++ rasterizer when it is built,
+and so do the port's; here both are sent through their numpy
+rasterizers, which the port copies.
 """
 
 import ast
@@ -39,6 +40,7 @@ from sam6d_tpu_torch.pipeline import pem_data as t_data
 from sam6d_tpu_torch.pipeline import renderer as t_render
 from sam6d_tpu_torch.utils import bbox as t_bbox
 from sam6d_tpu_torch.utils import mesh as t_mesh
+from sam6d_tpu_torch.utils import native as t_native
 from sam6d_tpu_torch.utils import rle as t_rle
 from sam6d_tpu_torch.utils import template_poses as t_poses
 from sam6d_tpu_torch.utils.png import decode_png, encode_png, read_png
@@ -319,10 +321,11 @@ def rendered(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(j_render, "rasterize", j_render.rasterize_numpy)
         mp.setattr(j_example, "rasterize", j_render.rasterize_numpy)
+        mp.setattr(t_native, "rasterize", lambda *a, **k: None)
         jdir = j_render.render_templates(cad, str(tmp / "jax"), 96)
         j_example.make_example(str(tmp / "jax_scene"))
-    tdir = t_render.render_templates(cad, str(tmp / "port"), 96)
-    t_example.make_example(str(tmp / "port_scene"))
+        tdir = t_render.render_templates(cad, str(tmp / "port"), 96)
+        t_example.make_example(str(tmp / "port_scene"))
     return dict(cad=cad, jdir=jdir, tdir=tdir, tmp=tmp)
 
 
@@ -420,7 +423,7 @@ def test_port_imports_no_jax_flax_pil_or_the_jax_package():
         ROOT / "chip_smoke.py"] + [
         ROOT / "tests" / "helpers" / f"{name}.py" for name in (
             "ball_query_clouds", "bop_tree", "fps_clouds", "jpeg_writer",
-            "megapose_tree", "reference_checkpoints")]
+            "megapose_tree", "reference_checkpoints", "torch_parallel_worker")]
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -9,9 +9,9 @@ generators seeded alike, in the same order, so every array of every
 sample is compared exactly: pts, rgb, rgb_choose, tem_rgb, tem_choose,
 tem_pts, gt_r, gt_t and K equal bit for bit (the decoder, the resize and
 the augmentation reproduce PIL's integers, so no grey-level bound is
-needed), and the generator ends in the same state.  The JAX renderer is
-sent through its numpy rasterizer, which the port copies (it takes its
-C++ rasterizer when that is built).  Also both packages on
+needed), and the generator ends in the same state.  Both renderers are
+sent through their numpy rasterizers (each takes the C++ rasterizer when
+it is built, whose boundary pixels differ).  Also both packages on
 `tests/test_megapose_fixture.py`'s PIL-written fixture and its
 geometric check.
 """
@@ -27,6 +27,7 @@ from sam6d_tpu.config import TrainConfig as JTrain
 from sam6d_tpu.provider import training_dataset as jds
 from sam6d_tpu_torch.config import TrainConfig as TTrain
 from sam6d_tpu_torch.provider import training_dataset as tds
+from sam6d_tpu_torch.utils import native as t_native
 from tests.test_megapose_fixture import megapose_root  # noqa: F401
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "helpers"))
@@ -46,6 +47,7 @@ def tree(tmp_path_factory):
 @pytest.fixture
 def numpy_rasterizer(monkeypatch):
     monkeypatch.setattr(j_render, "rasterize", j_render.rasterize_numpy)
+    monkeypatch.setattr(t_native, "rasterize", lambda *a, **k: None)
 
 
 def assert_samples_equal(a: dict, b: dict, what: str):
