@@ -9,7 +9,7 @@ process per source, all at once), then:
 1. environment: the card's name and power limit, torch and CUDA
    versions, compute capability 9.0, the kernel build;
 2. every kernel against its plain PyTorch version on the card at the
-   shapes the serving paths give it, with CUDA-event timings (kernel and
+   shapes the serving, training and accuracy paths give it, with CUDA-event timings (kernel and
    plain version in turns, medians) and, where one PyTorch call computes
    the same function, that call's time as a yardstick (K4/K5 also at
    ragged shapes, through the wrapper and as one bare launch, that
@@ -126,7 +126,29 @@ process per source, all at once), then:
    `sync_hosts`, `write_shard_and_merge`, one step of `train_cli.main
    --tp 1` at batch 4 through the distributed code (finite metrics, an
    applied update, K1, K2, K3 and K7 required), the group destroyed; `profiling.trace` around one PEM request naming its
-   `annotate` span, and `debug_tap` writing a tensor.
+   `annotate` span, and `debug_tap` writing a tensor;
+11. the accuracy loop (`sam6d_tpu_torch/tools/`), in the same temporary
+   directory, launches counted only inside the driven calls
+   (`LaunchTally`): (a) `smoke_train_eval`'s rendered recipe (the small
+   PEM, batch 8, SMOKE_STEPS steps), its first batch's gradients held to
+   the CPU's; the held-out median rotation error after training at most
+   SMOKE_ROT_FRACTION of the untrained one; (b) `train_flagship`
+   (default_pem_config, bf16, batch 8, the worker stream) for
+   FLAGSHIP_STEPS steps, finite losses and every parameter updated, then
+   `e2e_synthetic_ar.run_eval` on its 12-frame tree with the untrained
+   and the trained weights (AR in [0, 1]; request and scorer times) and
+   the GT poses through the same scorer (AR exactly 1.0); (c) ISM_STEPS
+   steps each of `train_ism_descriptor` (use_flash=False) and
+   `train_tiny_sam` (flash=False), every parameter the CPU's loss
+   reaches with a finite gradient on the card within 1e-3 of the CPU's;
+   the trained tiny SAM's AMG on one frame of each object, card against
+   CPU (`check_tiny_sam_amg`: the embedding, every candidate's IoU,
+   stability and box, the kept set, the masks); then
+   `ism_accuracy_eval` (2 held-out objects x 3 frames, a bank of 6)
+   with the depth connected-components and the tiny-SAM segmentors over
+   the trained weights and (a)'s PEM: selection accuracy, template-view
+   error and the ISM -> PEM AR; K4, K5 and K6 required there, all seven
+   kernels in the phase.
 
 Any failure exits non-zero.  The last lines are the nvidia-smi name and
 power limit, {"kernels": [...]}, and
@@ -328,9 +350,12 @@ def check_fps(dev):
     # Training: the 28 template clouds of 2 x 5000 points -> 2048 and the
     # 2 x 28 clouds -> 196.
     rows = []
+    # Phase 11's smoke config: the 8 template clouds of 2 x 128 points ->
+    # 128 and the 2 x 8 clouds -> 32.
     for B, N, npoint, reps in ((1, 2048, 196, 20), (8, 2048, 196, 20),
                                (1, 210000, 2048, 4), (28, 10000, 2048, 3),
-                               (56, 2048, 196, 10)):
+                               (56, 2048, 196, 10), (8, 256, 128, 10),
+                               (16, 128, 32, 10)):
         g = torch.Generator(device=dev).manual_seed(N + B)
         pts = torch.rand(B, N, 3, generator=g, device=dev) * 0.2 - 0.1
         plan = fps.fps_plan(B, N)
@@ -617,7 +642,8 @@ def check_attention(dev):
     (16, 4096, 80) shapes and K5 at the DINOv2-L shapes (128 and 4096
     batch-heads of 257 x 64), bfloat16, plus ragged shapes checked
     without timing: K4 on a 7 x 9 grid at d = 80 and on 14 x 14 at
-    d = 64, K5 at N = 300.  Each shape is checked through the wrapper and
+    d = 64, K5 at N = 300, and float32 at phase 11's tiny SAM (4, 256,
+    32) and tiny descriptor (64, 65, 32).  Each shape is checked through the wrapper and
     through one bare launch into a prepared output.  Times: the wrapper
     (`ms`, events around each call, as in earlier runs), the kernel alone
     (`kernel_ms`, a burst of bare launches on prepared inputs), the plain
@@ -638,25 +664,31 @@ def check_attention(dev):
     # deviation, so a kernel wrong by one typical output value fails.
     # Unit-scale q and k spread the logits (standard deviation 1 before
     # the bias), so the outputs are not near-uniform averages of v.
-    rtol = 1.6e-2
     rows = {"rpe": [], "plain": []}
     cases = (("rpe", 400, 14, 14, 80, 10), ("rpe", 16, 64, 64, 80, 5),
              ("plain", 128, 1, 257, 64, 10), ("plain", 4096, 1, 257, 64, 5),
              ("rpe", 8, 7, 9, 80, 0), ("rpe", 64, 14, 14, 64, 0),
-             ("plain", 64, 1, 300, 64, 0))
-    for kind, BH, h, w, d, reps in cases:
+             ("plain", 64, 1, 300, 64, 0),
+             # Phase 11's tiny SAM (a 16 x 16 grid, 4 heads of 32) and
+             # tiny descriptor (65 tokens, 4 heads of 32, 16 crops), in
+             # their float32.
+             ("rpe", 4, 16, 16, 32, 0, torch.float32),
+             ("plain", 64, 1, 65, 32, 0, torch.float32))
+    for kind, BH, h, w, d, reps, *dtype in cases:
+        dtype = dtype[0] if dtype else torch.bfloat16
+        dname = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
         N = h * w
         g = torch.Generator(device=dev).manual_seed(BH + N)
-        q, k, v = (torch.randn(BH, N, d, generator=g, device=dev).bfloat16()
+        q, k, v = (torch.randn(BH, N, d, generator=g, device=dev).to(dtype)
                    for _ in range(3))
         out = torch.empty_like(q)
         # SDPA takes (batch, heads, L, E): the batch-heads as heads.
         q4, k4, v4 = (t[None] for t in (q, k, v))
         if kind == "rpe":
             rh = (torch.randn(2 * h - 1, d, generator=g, device=dev)
-                  * 0.1).bfloat16()
+                  * 0.1).to(dtype)
             rw = (torch.randn(2 * w - 1, d, generator=g, device=dev)
-                  * 0.1).bfloat16()
+                  * 0.1).to(dtype)
             kern = lambda: fr.flash_rpe_attention_cuda(q, k, v, rh, rw,
                                                        (h, w))
             bare = lambda: fr.launch(fr.KERNEL_RPE, q, k, v, rh, rw, (h, w),
@@ -664,7 +696,7 @@ def check_attention(dev):
             plain = lambda: fr.rpe_attention_plain(q, k, v, rh, rw, (h, w))
             qrh, qrw = fr.rel_pos_tables(q, rh, rw, (h, w))
             mask = (qrh[..., :, None] + qrw[..., None, :]).reshape(
-                1, BH, N, N).bfloat16()
+                1, BH, N, N).to(dtype)
             del qrh, qrw
             lib = lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=mask)
@@ -680,7 +712,7 @@ def check_attention(dev):
             flops = 4 * BH * N * N * d + 2 * BH * N * d * (h + w) \
                 + 2 * BH * N * N
             nbytes = 4 * BH * N * d * 2 + (2 * h + 2 * w - 2) * d * 2
-            shape = f"({BH},{N},{d}) bf16, grid {h}x{w}"
+            shape = f"({BH},{N},{d}) {dname}, grid {h}x{w}"
         else:
             no_bias = {}
             kern = lambda: fr.flash_attention_cuda(q, k, v)
@@ -690,10 +722,13 @@ def check_attention(dev):
             lib = lambda: F.scaled_dot_product_attention(q4, k4, v4)
             flops = 4 * BH * N * N * d
             nbytes = 4 * BH * N * d * 2
-            shape = f"({BH},{N},{d}) bf16"
+            shape = f"({BH},{N},{d}) {dname}"
         want = plain().float()
         out_std = float(want.std())
-        atol = 0.05 * out_std
+        # float32 rounds nothing to a narrower type: both sides differ by
+        # the order of float32 sums only.
+        rtol = 1.6e-2 if dtype == torch.bfloat16 else 1e-4
+        atol = (0.05 if dtype == torch.bfloat16 else 1e-4) * out_std
         errs = {}
         for route, fn in (("wrapper", kern), ("kernel", bare)):
             got = fn().float()
@@ -734,7 +769,8 @@ def check_attention(dev):
 
 def check_decode_tail(dev):
     """K6 at P = 64 and at the AMG's full shape, keys (1024, 4096, 256)
-    bf16.  The plain version materializes every stage (several GB in one
+    bf16, and at phase 11's tiny SAM, keys (576, 256, 256) float32 (its
+    24 x 24 prompt grid on a 16 x 16 token grid).  The plain version materializes every stage (several GB in one
     call at P = 1024), so at P = 1024 it runs as 16 calls of 64 prompts,
     each prompt's statistics being its own.  Times: the wrapper (`ms`,
     with its checks and the hi / lo split of W1 and W2), the kernel alone
@@ -744,13 +780,13 @@ def check_decode_tail(dev):
 
     from sam6d_tpu_torch.ops import decode_tail as dt
 
-    def inputs(P, seed):
+    def inputs(P, N, dtype, seed):
         g = torch.Generator(device=dev).manual_seed(seed)
 
         def r(*shape, s=1.0):
             return torch.randn(*shape, generator=g, device=dev) * s
 
-        return dict(keys=r(P, 4096, 256, s=0.5).bfloat16(),
+        return dict(keys=r(P, N, 256, s=0.5).to(dtype),
                     hyper=r(P, 3, 32, s=0.5), w1=r(256, 256, s=0.05),
                     b1=r(256, s=0.05), ln_scale=1.0 + r(256, s=0.1),
                     ln_bias=r(256, s=0.1), w2=r(64, 128, s=0.1),
@@ -758,8 +794,10 @@ def check_decode_tail(dev):
 
     kw = dict(mask_threshold=0.0, stability_offset=1.0)
     rows = []
-    for P, reps in ((64, 5), (1024, 5)):
-        inp = inputs(P, P)
+    for P, N, dtype, reps in ((64, 4096, torch.bfloat16, 5),
+                              (1024, 4096, torch.bfloat16, 5),
+                              (576, 256, torch.float32, 5)):
+        inp = inputs(P, N, dtype, P)
         kern = lambda: dt.decode_tail_stats_cuda(**inp, **kw)
 
         def plain(chunk=64):
@@ -789,22 +827,24 @@ def check_decode_tail(dev):
         del got, want, diff
         t = time_in_turns({"kernel": kern, "plain": plain}, reps)
         tb = time_in_turns({"kernel": bare}, reps, burst=5)
-        # Per token: stage 1 (256 x 256) as two bf16 products (the keys
-        # are bf16, W1 split into hi and lo), stage 2 (4 x 64 x 128) as
-        # three, on the tensor cores; on the CUDA cores the contraction
+        # Per token: stage 1 (256 x 256) as two bf16 products (bf16 keys,
+        # W1 split into hi and lo; three for float32 keys, split as well),
+        # stage 2 (4 x 64 x 128) as three, on the tensor cores; on the CUDA cores the contraction
         # (4 x 12 x 32 multiply-adds) and ~10 operations for each
         # LayerNorm / GELU value (256 + 512).  The float32 bound of
         # earlier runs counts every product once at the CUDA cores' peak.
-        tokens = P * 4096
-        tc_flops = tokens * 2 * (2 * 256 * 256 + 3 * 4 * 64 * 128)
+        tokens = P * N
+        splits = 2 if dtype == torch.bfloat16 else 3
+        tc_flops = tokens * 2 * (splits * 256 * 256 + 3 * 4 * 64 * 128)
         f32_flops = tokens * (2 * 4 * 12 * 32 + 10 * (256 + 512))
         flops = tokens * (2 * (256 * 256 + 4 * 64 * 128 + 4 * 12 * 32)
                           + 10 * (256 + 512))
-        nbytes = tokens * 256 * 2 + P * (96 + 96) * 4 + (256 * 256 + 64
-                                                         * 128 + 896) * 4
+        nbytes = (tokens * 256 * inp["keys"].element_size()
+                  + P * (96 + 96) * 4 + (256 * 256 + 64 * 128 + 896) * 4)
         b_ms, b_by = bound_tc(nbytes, tc_flops, f32_flops)
         f32_ms, _ = bound(nbytes, flops, "float32")
-        rows.append(dict(shape=f"P={P}, keys ({P},4096,256) bf16",
+        dname = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+        rows.append(dict(shape=f"P={P}, keys ({P},{N},256) {dname}",
                          max_abs_err=err, ms=t["kernel"],
                          kernel_ms=tb["kernel"],
                          plain_ms=t["plain"], plain_calls=P // 64,
@@ -1049,8 +1089,10 @@ def check_geo_embed_bwd(dev):
     # order: 1e-3.  float32 with all k tied: the kernel's split products
     # (each operand hi + lo to 2^-17) and the order of the sums: 1e-5.
     rows = []
+    # Phase 11's smoke config: 2 x 8 clouds of 33 points, d = 64, float32.
     cases = ((torch.bfloat16, 56, 197, 256, False, 1e-3, 5),
-             (torch.float32, 2, 33, 32, True, 1e-5, 10))
+             (torch.float32, 2, 33, 32, True, 1e-5, 10),
+             (torch.float32, 16, 33, 64, False, 1e-5, 5))
     for dtype, B, N, d, ties, tol, reps in cases:
         mod = GeometricStructureEmbedding(GeoEmbeddingConfig(hidden_dim=d),
                                           dtype)
@@ -1235,26 +1277,119 @@ def check_scatter_rows(dev):
     return rows
 
 
+def grads_card_vs_cpu(dev, module, loss_fn, what: str, tol: float = 1e-3,
+                      atol: float = 1e-6, kernels=()):
+    """One loss and backward of `module` (on the CPU, weights kept) on the
+    CPU and on a copy on the card: the loss within 1e-4 relative; every
+    parameter that the CPU's loss reaches has a finite gradient on the
+    card within `tol` relative (Frobenius) of the CPU's, plus `atol`
+    absolute for the leaves whose gradient is zero in exact arithmetic
+    (an attention's key bias adds one logit to a whole softmax row: both
+    devices leave float noise there); those it does not reach have none
+    or one within `atol` on the card; the buffers (BatchNorm statistics) after the
+    forward within 1e-4; and each of `kernels` launched on the card.
+    loss_fn(module, device) -> loss."""
+    import copy
+
+    import torch
+
+    res = []
+    for device in ("cpu", dev):
+        m = copy.deepcopy(module).to(device)
+        before = [k.launches for k in kernels]
+        loss = loss_fn(m, device)
+        loss.backward()
+        res.append(dict(
+            loss=float(loss.detach()),
+            grads={n: (None if p.grad is None else p.grad.float().cpu())
+                   for n, p in m.named_parameters()},
+            bufs={n: v.float().cpu() for n, v in m.named_buffers()},
+            launches=[k.launches - n for k, n in zip(kernels, before)]))
+    cpu, gpu = res
+    reached = [n for n, g in cpu["grads"].items() if g is not None and g.any()]
+    errs, bad = {}, []
+    for n in reached:
+        g, w = gpu["grads"][n], cpu["grads"][n]
+        require(g is not None and bool(torch.isfinite(g).all()),
+                f"{what}: {n} has no finite gradient on the card")
+        errs[n] = rel_err(g, w)
+        if not float((g - w).norm()) <= tol * float(w.norm()) + atol:
+            bad.append((n, errs[n], float(w.norm())))
+    unreached = sorted(set(cpu["grads"]) - set(reached))
+    for n in unreached:
+        g = gpu["grads"][n]
+        require(g is None or float(g.norm()) <= atol,
+                f"{what}: {n} has a gradient on the card only")
+    loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    buf_err = max((float((gpu["bufs"][n] - v).abs().max())
+                   for n, v in cpu["bufs"].items()), default=0.0)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    launches = dict(zip([k.name for k in kernels], gpu["launches"]))
+    log(f"{what}, card against CPU: loss {gpu['loss']:.6f} / "
+        f"{cpu['loss']:.6f} (rel {loss_err:.3g}); {len(reached)} of "
+        f"{len(cpu['grads'])} parameters reached, worst relative {worst}; "
+        f"buffers max abs err {buf_err:.3g}; launches {launches}")
+    require(all(n > 0 for n in gpu["launches"]),
+            f"{what} on the card launched {launches}")
+    require(loss_err <= 1e-4, f"{what}: loss rel err {loss_err}")
+    require(not bad, f"{what}: gradients off (name, relative error, CPU "
+                     f"norm): {bad}")
+    require(buf_err <= 1e-4, f"{what}: buffers {buf_err}")
+    return dict(loss_rel_err=loss_err, worst_grad_rel_err=worst,
+                bn_max_abs_err=buf_err, reached=len(reached),
+                params=len(cpu["grads"]), unreached=unreached)
+
+
+def train_grads_card_vs_cpu(dev, make_model, batch, noise, what: str):
+    """One training forward and backward of the PEM that `make_model()`
+    builds on the CPU, on `batch` with the fixed pose noise `noise` = (std,
+    n_rot, n_trans), on the card (K1, K2 and K3 through the fused
+    embedding, K7 under the positional encoding) against the same on the
+    CPU (plain versions, the unfused embedding): `grads_card_vs_cpu`.
+
+    tolerance: the card runs the fused embedding (clamped Chebyshev plus
+    the sentinel delta, 2e-4 from the unfused path the CPU takes), and the
+    pairwise-distance diagonal is the square root of a cancellation
+    residual that the two devices' matmuls leave differently (~1e-3 on the
+    diagonal's embedding, as in check_tiny_bank): each gradient leaf 5e-3
+    relative plus 1e-6 absolute for the leaves that are zero in exact
+    arithmetic; the loss 1e-4 relative and the BatchNorm statistics 1e-4,
+    as for every model."""
+    from sam6d_tpu_torch.ops import fps, geo_embed, scatter_rows
+    from sam6d_tpu_torch.train.loss import pem_loss
+    from sam6d_tpu_torch.train.state import _to_device
+
+    def loss_fn(model, device):
+        b = _to_device(batch, device)
+        out = model.train_forward(
+            b["pts"], b["rgb"], b["rgb_choose"], b["tem_rgb"], b["tem_pts"],
+            b["tem_choose"], b["gt_r"], b["gt_t"],
+            noise=(noise[0], noise[1].to(device), noise[2].to(device)))
+        cfg = model.cfg
+        return pem_loss(out, b["gt_r"], b["gt_t"],
+                        cfg.coarse_point_matching.loss_dis_thres,
+                        cfg.fine_point_matching.loss_dis_thres)[0]
+
+    return grads_card_vs_cpu(
+        dev, make_model(), loss_fn, what, tol=5e-3,
+        kernels=[fps.KERNEL, geo_embed.KERNEL, geo_embed.KERNEL_BWD,
+                 scatter_rows.KERNEL])
+
+
 def check_tiny_train_step(dev):
     """One tiny-config training forward and backward (float32, random
     weights from a seed, two synthetic samples, fixed pose noise) on the
-    card (K1, K2 and K3 through the fused embedding, K7 under the
-    positional encoding) against the same on the CPU (plain versions, the
-    unfused embedding): the loss, every gradient leaf and the BatchNorm
-    statistics."""
+    card against the same on the CPU (`train_grads_card_vs_cpu`)."""
     import numpy as np
     import torch
 
     from sam6d_tpu_torch import config as c
     from sam6d_tpu_torch.models.pem.model import PEM
-    from sam6d_tpu_torch.ops import fps, geo_embed, scatter_rows
     from sam6d_tpu_torch.params import init_random_
     from sam6d_tpu_torch.provider.training_dataset import (
         SyntheticPoseDataset,
         collate,
     )
-    from sam6d_tpu_torch.train.loss import pem_loss
-    from sam6d_tpu_torch.train.state import _to_device
 
     tcfg = c.TrainConfig(batch_size=2, img_size=32, n_sample_observed_point=64,
                          n_sample_template_point=48)
@@ -1263,56 +1398,10 @@ def check_tiny_train_step(dev):
     rng = np.random.RandomState(0)
     n_rot, n_trans = (torch.from_numpy(rng.randn(2, 3).astype(np.float32))
                       for _ in range(2))
-    kernels = [fps.KERNEL, geo_embed.KERNEL, geo_embed.KERNEL_BWD,
-               scatter_rows.KERNEL]
-    res = []
-    for device in ("cpu", dev):
-        model = init_random_(PEM(tiny_pem_config(), device="cpu"),
-                             torch.Generator().manual_seed(0)).to(device)
-        b = _to_device(batch, device)
-        before = [k.launches for k in kernels]
-        out = model.train_forward(
-            b["pts"], b["rgb"], b["rgb_choose"], b["tem_rgb"], b["tem_pts"],
-            b["tem_choose"], b["gt_r"], b["gt_t"],
-            noise=(5.0, n_rot.to(device), n_trans.to(device)))
-        loss, _ = pem_loss(out, b["gt_r"], b["gt_t"])
-        loss.backward()
-        res.append(dict(
-            loss=float(loss.detach()),
-            grads={n: p.grad.cpu() for n, p in model.named_parameters()},
-            bufs={n: v.cpu() for n, v in model.named_buffers()},
-            launches=[k.launches - n for k, n in zip(kernels, before)]))
-    cpu, gpu = res
-    require(all(n > 0 for n in gpu["launches"]),
-            f"tiny train step on the card launched {gpu['launches']} of "
-            f"{[k.name for k in kernels]}")
-    # The card runs the fused embedding (clamped Chebyshev plus the
-    # sentinel delta, 2e-4 from the unfused path the CPU takes), and the
-    # pairwise-distance diagonal is the square root of a cancellation
-    # residual that the two devices' matmuls leave differently (~1e-3 on
-    # the diagonal's embedding, as in check_tiny_bank): loss 1e-4
-    # relative, each gradient leaf 5e-3 relative plus 1e-6 absolute for
-    # the leaves that are zero in exact arithmetic, BatchNorm statistics
-    # 1e-4.
-    loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
-    grad_errs = {n: float((gpu["grads"][n] - w).norm() / w.norm().clamp_min(
-        1e-30)) for n, w in cpu["grads"].items()}
-    bad = [n for n, w in cpu["grads"].items()
-           if not float((gpu["grads"][n] - w).norm())
-           <= 5e-3 * float(w.norm()) + 1e-6]
-    buf_err = max(float((gpu["bufs"][n] - v).abs().max())
-                  for n, v in cpu["bufs"].items())
-    worst = sorted(grad_errs.items(), key=lambda kv: -kv[1])[:3]
-    log(f"tiny train step, card against CPU: loss {gpu['loss']:.6f} / "
-        f"{cpu['loss']:.6f} (rel {loss_err:.3g}), worst gradient leaves "
-        f"{worst}, BatchNorm statistics max abs err {buf_err:.3g}, "
-        f"launches {dict(zip([k.name for k in kernels], gpu['launches']))}")
-    require(loss_err <= 1e-4, f"tiny train step: loss rel err {loss_err}")
-    require(not bad, f"tiny train step: gradient leaves off: {bad}")
-    require(buf_err <= 1e-4, f"tiny train step: BatchNorm stats {buf_err}")
-    return dict(loss_rel_err=loss_err, worst_grad_rel_err=worst,
-                bn_max_abs_err=buf_err)
-
+    return train_grads_card_vs_cpu(
+        dev, lambda: init_random_(PEM(tiny_pem_config(), device="cpu"),
+                                  torch.Generator().manual_seed(0)),
+        batch, (5.0, n_rot, n_trans), "tiny train step")
 
 
 def write_gt_detection(scene_dir: str, out_path: str,
@@ -3059,6 +3148,385 @@ def phase_last_modules(dev, smi: str, tmp: Path, request):
     return out
 
 
+# Phase 11: the accuracy loop.  Steps of 11a and its bound on the
+# held-out rotation error, from the long run of smoke_train_eval on the
+# card (`accuracy_runs.sh`; PERF.md section 6).
+SMOKE_STEPS = 1000
+SMOKE_ROT_FRACTION = 0.6
+FLAGSHIP_STEPS = 30
+ISM_STEPS = 5
+
+
+class LaunchTally:
+    """The kernels' launches within the main path's calls alone: `run`
+    zeroes every count just before a call and adds the counts just after
+    to the tally, so that the checks between calls (card against CPU)
+    count nothing."""
+
+    def __init__(self):
+        self.kernels = all_kernels()
+        self.counts = {k.name: 0 for k in self.kernels}
+
+    def run(self, fn, *args, **kwargs):
+        for k in self.kernels:
+            k.launches = 0
+        out = fn(*args, **kwargs)
+        for k in self.kernels:
+            self.counts[k.name] += k.launches
+        return out
+
+
+def ism_frames(objects, per_object: int):
+    """The first `per_object` RGB frames (uint8 (H, W, 3)) of each object
+    of an `e2e_synthetic_ar.build_multi_dataset` tree."""
+    from sam6d_tpu_torch.utils.png import read_png
+
+    return [read_png(f"{o['scene']}/rgb/{d['image_id']:06d}.png")[..., :3]
+            for o in objects for d in o["dets"][:per_object]]
+
+
+def check_tiny_sam_amg(dev, sam_ckpt: str, frames, what: str):
+    """The tiny SAM's AMG as `ism_accuracy_eval` serves it
+    (`load_tiny_sam_amg`: a 24 x 24 prompt grid, the tool's thresholds)
+    on `frames`, on the card (K4 in every encoder block, K6 for the
+    candidates' statistics) against the same weights on the CPU (their
+    plain versions), the fused tail on both: the image embedding; every
+    candidate's predicted IoU, stability and box, by index (3 a prompt,
+    1728 a frame); which candidates the tool's thresholds keep; and the
+    masks and boxes that the AMG returns.
+
+    tolerance (float32 on both devices; K4 and K6 keep float32 accuracy,
+    so the two differ by the order of float32 sums): the embedding 1e-4
+    relative (Frobenius), each IoU 1e-3; a stability is a ratio of pixel
+    counts that flips where a logit lies within rounding of a threshold,
+    as K6's counts against its plain version (8 pixels): 0.05 on 99% of
+    the candidates, and the kept sets differ by at most 1% of them; the
+    returned masks equal in number, agreeing on 99.9% of their pixels,
+    boxes within 3 px."""
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch.models.ism.sam import amg as A
+    from sam6d_tpu_torch.tools import train_tiny_sam as ts
+
+    res = {}
+    for device in ("cpu", dev):
+        gen = ts.load_tiny_sam_amg(sam_ckpt, device=device)
+        gen.fused = True
+        cfg, sam = gen.cfg, gen.sam
+        res[device] = []
+        for frame in frames:
+            with torch.no_grad():
+                img, _, (eh, ew) = sam.preprocess(
+                    torch.from_numpy(np.ascontiguousarray(frame)).to(device))
+                emb = sam.encode(img[None])
+                pts = torch.from_numpy(gen.point_grid * np.array(
+                    [ew, eh], np.float32)).to(device)[None]
+                _, _, iou, stab, boxes = A.fused_candidates(
+                    emb, pts, sam=sam, points_per_batch=cfg.points_per_batch,
+                    mask_threshold=cfg.mask_threshold,
+                    stability_offset=cfg.stability_score_offset)
+            out = gen.generate_masks(frame)
+            iou, stab, boxes = (t.float().cpu().numpy()
+                                for t in (iou, stab, boxes))
+            keep = ((iou > cfg.pred_iou_thresh)
+                    & (stab > cfg.stability_score_thresh)
+                    & (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1]))
+            res[device].append(dict(emb=emb.float().cpu(), iou=iou,
+                                    stab=stab, boxes=boxes, keep=keep,
+                                    masks=out["masks"], mboxes=out["boxes"]))
+        del gen, sam
+    rows = []
+    for i, (c, g) in enumerate(zip(res["cpu"], res[dev])):
+        dstab = np.abs(g["stab"] - c["stab"])
+        row = dict(
+            frame=i, candidates=len(c["iou"]),
+            emb_rel_err=rel_err(g["emb"], c["emb"]),
+            iou_max_abs_err=float(np.abs(g["iou"] - c["iou"]).max()),
+            stab_max_abs_err=float(dstab.max()),
+            stab_over_0_05=int((dstab > 0.05).sum()),
+            box_max_abs_err=float(np.abs(g["boxes"] - c["boxes"]).max()),
+            kept=[int(c["keep"].sum()), int(g["keep"].sum())],
+            kept_differ=int((c["keep"] != g["keep"]).sum()),
+            masks=[len(c["masks"]), len(g["masks"])],
+            stab_quantiles=np.round(np.quantile(
+                g["stab"], [0.5, 0.9, 1.0]), 3).tolist(),
+            iou_quantiles=np.round(np.quantile(
+                g["iou"], [0.5, 0.9, 1.0]), 3).tolist())
+        if len(c["masks"]) == len(g["masks"]) and len(c["masks"]):
+            row["mask_agreement"] = float((g["masks"] == c["masks"]).mean())
+            row["mbox_max_abs_err"] = float(
+                np.abs(g["mboxes"] - c["mboxes"]).max())
+        rows.append(row)
+        log(f"{what} frame {i}: {row}")
+    for i, row in enumerate(rows):  # every frame logged before a check
+        n = row["candidates"]
+        require(row["emb_rel_err"] <= 1e-4 and row["iou_max_abs_err"] <= 1e-3,
+                f"{what} frame {i}: embedding {row['emb_rel_err']}, IoU "
+                f"{row['iou_max_abs_err']}")
+        require(row["stab_over_0_05"] <= 0.01 * n
+                and row["kept_differ"] <= 0.01 * n,
+                f"{what} frame {i}: stability off by > 0.05 on "
+                f"{row['stab_over_0_05']} of {n} candidates, kept sets "
+                f"differ on {row['kept_differ']}")
+        require(row["masks"][0] == row["masks"][1]
+                and row.get("mask_agreement", 1.0) > 0.999
+                and row.get("mbox_max_abs_err", 0.0) <= 3.0,
+                f"{what} frame {i}: masks {row['masks']}, agreement "
+                f"{row.get('mask_agreement')}, boxes "
+                f"{row.get('mbox_max_abs_err')}")
+    return rows
+
+
+def accuracy_learnability(dev, tmp: Path, tally: LaunchTally):
+    """11a: smoke_train_eval's rendered recipe (128 training objects, as
+    its long run) for SMOKE_STEPS steps at batch 8; the held-out median rotation error after training must be at
+    most SMOKE_ROT_FRACTION of the untrained one.  The first batch's
+    gradients are held to the CPU's first."""
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch.models.pem.model import PEM
+    from sam6d_tpu_torch.params import init_random_
+    from sam6d_tpu_torch.provider.training_dataset import collate
+    from sam6d_tpu_torch.tools import smoke_train_eval as se
+    from sam6d_tpu_torch.train.checkpoint import save_train_state
+    from sam6d_tpu_torch.train.state import create_train_state
+
+    t0 = time.perf_counter()
+    cfg, B = se.smoke_pem_config(), 8
+    ds, ev = se.make_datasets("rendered", se.train_config(B), objects=128,
+                              eval_objects=8, n_eval=16)
+    rng = np.random.RandomState(0)
+    noise = (5.0, *(torch.from_numpy(rng.randn(B, 3).astype(np.float32))
+                    for _ in range(2)))
+    step_check = train_grads_card_vs_cpu(
+        dev, lambda: init_random_(PEM(cfg, device="cpu"),
+                                  torch.Generator().manual_seed(0)),
+        collate([ds[j] for j in range(B)]), noise,
+        "smoke-config train step")
+    state = create_train_state(cfg, se.optim_config(3e-4, SMOKE_STEPS),
+                               device=dev, seed=0)
+    before = tally.run(se.evaluate, state.model, ev, n_eval=16, batch_size=B,
+                       tag="11a untrained")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    t1 = time.perf_counter()
+    steps = tally.run(se.train, state, ds, SMOKE_STEPS, B, generator=gen,
+                      log_every=100)
+    train_s = time.perf_counter() - t1
+    after = tally.run(se.evaluate, state.model, ev, n_eval=16, batch_size=B,
+                      tag=f"11a trained {SMOKE_STEPS} steps")
+    ckpt = save_train_state(str(tmp / "smoke_ckpt"), state)
+    losses = [m["loss"] for m in steps]
+    step_ms = [m["step_ms"] for m in steps[min(5, len(steps) - 1):]]
+    out = dict(steps=SMOKE_STEPS, batch=B, loss_first=losses[0],
+               loss_last=losses[-1], step_ms_median=statistics.median(step_ms),
+               step_ms_spread=[min(step_ms), max(step_ms)],
+               train_wall_s=train_s, ckpt=str(Path(ckpt).parent),
+               rot_median=[before["rot_median"], after["rot_median"]],
+               trans_median_mm=[before["trans_median"] * 1e3,
+                                after["trans_median"] * 1e3],
+               coarse_rot_median=[before["coarse_rot_median"],
+                                  after["coarse_rot_median"]],
+               step_check=step_check)
+    log(f"11a: loss {losses[0]:.3f} -> {losses[-1]:.3f}, step "
+        f"{out['step_ms_median']:.2f} ms (CUDA events, median after 5), "
+        f"held-out rot median {before['rot_median']:.1f} -> "
+        f"{after['rot_median']:.1f} deg, trans "
+        f"{out['trans_median_mm'][0]:.1f} -> {out['trans_median_mm'][1]:.1f}"
+        f" mm, {train_s:.1f} s of training")
+    require(all(math.isfinite(x) for x in losses), "11a: non-finite loss")
+    require(after["rot_median"] <= SMOKE_ROT_FRACTION * before["rot_median"],
+            f"11a: held-out rotation median {after['rot_median']:.1f} deg is "
+            f"above {SMOKE_ROT_FRACTION} x the untrained "
+            f"{before['rot_median']:.1f}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def accuracy_flagship(dev, tmp: Path, tally: LaunchTally):
+    """11b: train_flagship for FLAGSHIP_STEPS steps at batch 8 (the worker
+    stream, bf16), every parameter updated, then e2e_synthetic_ar's run_eval
+    on its 12-frame tree with the untrained and the trained weights (AR in
+    [0, 1]) and the GT poses through the same scorer (AR exactly 1)."""
+    import os
+
+    import torch
+
+    from sam6d_tpu_torch.config import OptimConfig, default_pem_config
+    from sam6d_tpu_torch.pipeline.bop_score import score_dataset
+    from sam6d_tpu_torch.tools import e2e_synthetic_ar as e2e
+    from sam6d_tpu_torch.tools import train_flagship as tf
+
+    t0 = time.perf_counter()
+    cfg, B = default_pem_config(), 8
+    ds = tf.make_dataset(B, objects=16)
+    stream = tf.make_stream(ds, B, FLAGSHIP_STEPS,
+                            workers=max(1, min(7, (os.cpu_count() or 2) - 1)))
+    state = tf.make_state(cfg, tf.optim_config(1e-4, FLAGSHIP_STEPS), dev)
+    p0 = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    log_ = tally.run(tf.train, state, stream, FLAGSHIP_STEPS,
+                     str(tmp / "flagship_ckpt"), FLAGSHIP_STEPS, gen,
+                     log_every=10)
+    losses = [m["loss"] for m in log_]
+    still = [n for n, p in state.model.named_parameters()
+             if torch.equal(p.detach(), p0[n])]
+    require(all(math.isfinite(x) for x in losses), "11b: non-finite loss")
+    require(not still, f"11b: parameters not updated: {still[:8]}")
+    require(all(m["update_skipped"] == 0.0 for m in log_[1:]),
+            "11b: an update was skipped")
+
+    eval_dir = tmp / "e2e_flagship"
+    cad, tdir, scene, dets = e2e.build_dataset(str(eval_dir), frames=12)
+    objs = [{"obj_id": 1, "scene_id": 0, "scene": scene}]
+    gt = score_dataset(e2e.gt_rows(objs), str(eval_dir))
+    require(gt["ar"] == 1.0, f"11b: GT poses AR {gt['ar']}")
+    rand = tf.make_state(cfg, OptimConfig(), dev)
+    ars = {}
+    for tag, weights in (("untrained", rand.model.state_dict()),
+                         ("trained", state.model.state_dict())):
+        r = tally.run(e2e.run_eval, weights, cfg, cad, tdir, scene, dets,
+                      str(eval_dir / tag), f"11b {tag}", device=dev)
+        require(0.0 <= r["ar"] <= 1.0, f"11b: {tag} AR {r['ar']}")
+        ars[tag] = dict(ar=r["ar"], ar_vsd=r.get("ar_vsd"),
+                        ar_mssd=r["ar_mssd"], ar_mspd=r["ar_mspd"],
+                        request_ms=[x * 1e3 for x in r["request_s"]],
+                        score_s=r["score_s"])
+    del rand
+    warm = log_[min(3, len(log_) - 1):]
+    step_ms = [m["step_ms"] for m in warm]
+    wait_ms = [m["wait_ms"] for m in warm]
+    out = dict(steps=FLAGSHIP_STEPS, batch=B, loss_first=losses[0],
+               loss_last=losses[-1],
+               step_ms_median=statistics.median(step_ms),
+               wait_ms_median=statistics.median(wait_ms),
+               gt_ar=gt["ar"], eval=ars, wall_s=time.perf_counter() - t0)
+    for tag, r in ars.items():
+        req = r["request_ms"]
+        log(f"11b {tag}: AR {r['ar']:.4f} (vsd {r['ar_vsd']:.4f} mssd "
+            f"{r['ar_mssd']:.4f} mspd {r['ar_mspd']:.4f}); request ms first "
+            f"{req[0]:.1f} (onboarding), median of the rest "
+            f"{statistics.median(req[1:]):.1f}; scorer {r['score_s']:.3f} s")
+    log(f"11b: {FLAGSHIP_STEPS} steps at batch {B}, loss {losses[0]:.3f} -> "
+        f"{losses[-1]:.3f}, step {out['step_ms_median']:.1f} ms (CUDA "
+        f"events, median after 3), data wait {out['wait_ms_median']:.1f} ms; "
+        f"GT poses AR {gt['ar']}")
+    return out
+
+
+def accuracy_ism(dev, tmp: Path, tally: LaunchTally, pem_ckpt: str):
+    """11c: ISM_STEPS steps each of train_ism_descriptor (use_flash=False)
+    and train_tiny_sam (flash=False) on the card, the first batch's
+    gradients held to the CPU's; then ism_accuracy_eval on a few frames
+    with both segmentors over the trained weights and 11a's PEM."""
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch.models.ism.detector import normalize_rgb
+    from sam6d_tpu_torch.ops import decode_tail, flash_rpe
+    from sam6d_tpu_torch.provider.training_dataset import make_procedural_mesh
+    from sam6d_tpu_torch.tools import e2e_synthetic_ar as e2e
+    from sam6d_tpu_torch.tools import ism_accuracy_eval as ie
+    from sam6d_tpu_torch.tools import train_ism_descriptor as td
+    from sam6d_tpu_torch.tools import train_tiny_sam as ts
+    from sam6d_tpu_torch.train.checkpoint import save_params
+
+    t0 = time.perf_counter()
+    out = {}
+    # The descriptor: NT-Xent over 24 objects' view pairs.
+    cfg = td.tiny_descriptor_config()
+    rng = np.random.RandomState(0)
+    pools = td.render_pools(32, 8, cfg.image_size, rng)
+    model = td.make_descriptor(cfg, "cpu")
+    batch = td.make_batch(pools, rng, 24)
+    out["descriptor_grads"] = grads_card_vs_cpu(
+        dev, model, lambda m, d: td.nt_xent(
+            m.vit(normalize_rgb(torch.as_tensor(batch, device=d)))[0],
+            0.1)[0], "11c descriptor (use_flash=False)")
+    model = model.to(dev)
+    opt, sched = td.make_optimizer(model.parameters(), 3e-4)
+    desc_log = [tally.run(td.train_step, model, opt, sched,
+                          td.make_batch(pools, rng, 24), 0.1)
+                for _ in range(ISM_STEPS)]
+    desc_path = save_params(str(tmp / "desc" / td.CKPT_FILE), model.vit)
+    # The tiny SAM: SAM's loss over 8 prompts of 8 scenes.
+    rng = np.random.RandomState(11)
+    meshes = [make_procedural_mesh(rng) for _ in range(16)]
+    sam = ts.make_tiny_sam(device="cpu")
+    imgs, pts, gts = ts.make_training_batch(meshes, rng, B=8, P=8)
+    out["sam_grads"] = grads_card_vs_cpu(
+        dev, sam, lambda m, d: ts.sam_loss(
+            m, *(torch.as_tensor(x, device=d) for x in (imgs, pts, gts)))[0],
+        "11c tiny SAM (flash=False)")
+    sam = sam.to(dev)
+    opt, sched = td.make_optimizer(sam.parameters(), 3e-4,
+                                   ts.cosine_decay(3e-4, ISM_STEPS))
+    sam_log = []
+    for _ in range(ISM_STEPS):
+        b = ts.make_training_batch(meshes, rng, B=8, P=8)
+        sam_log.append(tally.run(ts.train_step, sam, opt, sched, *b))
+    sam_path = save_params(str(tmp / "sam" / ts.CKPT_FILE), sam)
+    require(all(math.isfinite(x[0]) for x in desc_log + sam_log),
+            "11c: non-finite training loss")
+    out.update(descriptor_loss=[x[0] for x in desc_log],
+               sam_loss=[x[0] for x in sam_log])
+    del model, sam
+
+    # The ISM -> PEM loop on 2 held-out objects x 3 frames, a bank of 6.
+    before = dict(tally.counts)
+    objects = e2e.build_multi_dataset(str(tmp / "ism_acc"), n_objects=2,
+                                      frames=3)
+    out["sam_amg"] = check_tiny_sam_amg(dev, sam_path, ism_frames(objects, 1),
+                                        "11c tiny SAM AMG, card against CPU")
+    det = ie.make_detector(desc_path, ie.make_segmentor("depth_cc", "", dev),
+                           dev)
+    tem_poses = tally.run(ie.onboard_bank, det, objects, 6)
+    pem = ie.load_pem("smoke", pem_ckpt, dev)
+    per = {}
+    for kind in ("depth_cc", "tiny_sam"):
+        det.segmentor = ie.make_segmentor(kind, sam_path, dev)
+        rows, errs, by_obj, times = tally.run(ie.run_frames, det, objects,
+                                              tem_poses)
+        rec = tally.run(ie.score_segmentor, kind, objects, rows, errs,
+                        by_obj, str(tmp / "ism_acc" / kind), pem[:2], dev)
+        rec["frame_ms"] = [x * 1e3 for x in times]
+        rec.pop("e2e_detail", None)
+        per[kind] = rec
+        log(f"11c {kind}: selection {rec['object_selection_acc']:.3f} over "
+            f"{rec['frames']} frames, template-view error median "
+            f"{rec['median_template_view_err_deg']:.1f} deg, e2e AR "
+            f"{rec['e2e_ar_no_gt_masks']:.4f}, frame ms median "
+            f"{statistics.median(rec['frame_ms']):.1f}")
+        require(0.0 <= rec["e2e_ar_no_gt_masks"] <= 1.0,
+                f"11c {kind}: AR {rec['e2e_ar_no_gt_masks']}")
+    ism_launches = {k: tally.counts[k] - before[k] for k in before}
+    for k in (flash_rpe.KERNEL_RPE, flash_rpe.KERNEL_PLAIN,
+              decode_tail.KERNEL):
+        require(ism_launches[k.name] > 0,
+                f"11c: {k.name} not launched in the ISM loop")
+    out.update(eval=per, ism_launches=ism_launches,
+               wall_s=time.perf_counter() - t0)
+    return out
+
+
+def phase_accuracy(dev, tmp: Path):
+    """Phase 11: the accuracy loop; see the module docstring."""
+    t0 = time.perf_counter()
+    tally = LaunchTally()
+    a = accuracy_learnability(dev, tmp, tally)
+    b = accuracy_flagship(dev, tmp, tally)
+    c = accuracy_ism(dev, tmp, tally, a["ckpt"])
+    missing = [k for k, n in tally.counts.items() if n == 0]
+    require(not missing, f"phase 11 launched no {missing}")
+    out = dict(learnability=a, flagship=b, ism=c, launches=tally.counts,
+               wall_s=time.perf_counter() - t0)
+    log(f"phase 11 launches {tally.counts}; wall {out['wall_s']:.1f} s "
+        f"(11a {a['wall_s']:.1f}, 11b {b['wall_s']:.1f}, "
+        f"11c {c['wall_s']:.1f})")
+    return out
+
+
 def main():
     import torch
 
@@ -3132,6 +3600,12 @@ def main():
         log("== phase 10: pointnet2, the native library, torch.distributed "
             "on one card, profiling and the debug tap")
         last = phase_last_modules(dev, smi, Path(tmp), request)
+        del request
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== phase 11: the accuracy loop (learnability, full-width AR, "
+            "the trained tiny descriptor and tiny SAM, ISM -> PEM AR)")
+        accuracy = phase_accuracy(dev, Path(tmp))
 
     d = last["distributed"]
     phase10_launches = {k: d["runner_launches"].get(k, 0)
@@ -3159,6 +3633,7 @@ def main():
             **({"launches_train_data": train_data["launches"][kernel.name]}
                if kernel.name in train_data["launches"] else {}),
             "launches_phase10": phase10_launches.get(kernel.name, 0),
+            "launches_phase11": accuracy["launches"][kernel.name],
         }
 
     # Main rows: FPS of one instance (2048 -> 196) and the bf16 embedding
@@ -3200,7 +3675,7 @@ def main():
          "build_s": build_s, "ptxas": ptxas, "tiny_bf16": tiny_bf16, "tiny_train": tiny_train,
          "tiny_fastsam": tiny_fs, "slice": sl, "ism": ism, "train": train,
          "demo": demo_run, "weights": weights, "train_data": train_data,
-         "bop": bop, "last_modules": last,
+         "bop": bop, "last_modules": last, "accuracy": accuracy,
          **report}, indent=1))
     log(smi)
     print(json.dumps(report))

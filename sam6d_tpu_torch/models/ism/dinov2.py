@@ -6,12 +6,15 @@ vision_transformer.py): LayerScale blocks, cls + patch tokens, and the
 CLS (semantic) and masked-patch (appearance) descriptors from one
 forward.  Module names follow the JAX parameter tree.
 
-The attention takes the flash kernel K5 (`ops/flash_rpe.py`) when the
-tensors lie on a CUDA device.  The JAX package leaves `use_flash` off
-here for a reason of the TPU: at N = 257 its Pallas grid degenerates into
-thousands of tiny programs.  On the card the kernel keeps the (Q * 16,
-257, 257) float32 logits (1.1 GB at a bucket of 256) from existing; on
-the CPU the wrapper computes the same materialized attention as before.
+With `use_flash` (the default) the attention takes the flash kernel K5
+(`ops/flash_rpe.py`) when the tensors lie on a CUDA device, and the
+wrapper's materialized plain version on the CPU.  The JAX package never
+uses flash here, for a reason of the TPU: at N = 257 its Pallas grid
+degenerates into thousands of tiny programs.  On the card the kernel
+keeps the (Q * 16, 257, 257) float32 logits (1.1 GB at a bucket of 256)
+from existing.  K5 is forward-only, so a descriptor that is trained is
+built with `use_flash=False`: the materialized, differentiable attention
+on every device, as the JAX DinoBlock always computes it.
 """
 
 from __future__ import annotations
@@ -38,10 +41,10 @@ class LayerScale(nn.Module):
 
 class DinoBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_flash: bool = True):
         super().__init__()
         self.norm1 = LayerNorm(dim, dtype)
-        self.attn = Attention(dim, num_heads, dtype, use_flash=True)
+        self.attn = Attention(dim, num_heads, dtype, use_flash=use_flash)
         self.ls1 = LayerScale(dim)
         self.norm2 = LayerNorm(dim, dtype)
         self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dtype)
@@ -53,10 +56,13 @@ class DinoBlock(nn.Module):
 
 
 class DinoViT(nn.Module):
-    """DINOv2-style ViT returning (cls token, patch tokens)."""
+    """DINOv2-style ViT returning (cls token, patch tokens).  use_flash:
+    K5 on the card (serving); False for training (see the module
+    docstring)."""
 
     def __init__(self, patch_size=14, embed_dim=1024, depth=24, num_heads=16,
-                 mlp_ratio=4.0, img_size=224, dtype=torch.float32):
+                 mlp_ratio=4.0, img_size=224, dtype=torch.float32,
+                 use_flash: bool = True):
         super().__init__()
         n_patches = (img_size // patch_size) ** 2
         self.patch_embed = PatchEmbed(3, embed_dim, patch_size, dtype)
@@ -64,7 +70,8 @@ class DinoViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, n_patches + 1, embed_dim))
         for i in range(depth):
             self.add_module(f"blocks_{i}",
-                            DinoBlock(embed_dim, num_heads, mlp_ratio, dtype))
+                            DinoBlock(embed_dim, num_heads, mlp_ratio, dtype,
+                                      use_flash))
         self.norm = LayerNorm(embed_dim, dtype)
         self.depth = depth
         self.embed_dim = embed_dim
@@ -95,15 +102,17 @@ def patch_validity_mask(masks: torch.Tensor, patch_size: int,
 
 class DescriptorModel(nn.Module):
     """CLS (semantic) and masked-patch (appearance) descriptor heads over
-    one DINOv2 forward; `vit` holds the JAX DescriptorModel's variables."""
+    one DINOv2 forward; `vit` holds the JAX DescriptorModel's variables.
+    use_flash=False for training (`DinoViT`)."""
 
-    def __init__(self, cfg: DescriptorConfig, dtype=torch.float32):
+    def __init__(self, cfg: DescriptorConfig, dtype=torch.float32,
+                 use_flash: bool = True):
         super().__init__()
         self.cfg = cfg
         self.vit = DinoViT(patch_size=cfg.patch_size,
                            embed_dim=cfg.embed_dim, depth=cfg.depth,
                            num_heads=cfg.num_heads, img_size=cfg.image_size,
-                           dtype=dtype)
+                           dtype=dtype, use_flash=use_flash)
 
     def compute_cls_and_patch(self, images: torch.Tensor,
                               masks: torch.Tensor):

@@ -162,11 +162,11 @@ def _decode_and_filter_all(embedding, points, *, sam, points_per_batch: int,
     return logits_k, iou[keep], stability[keep], boxes_k
 
 
-def _decode_and_filter_fused(embedding, points, *, sam,
-                             points_per_batch: int, mask_threshold: float,
-                             stability_offset: float, top_k: int):
+def fused_candidates(embedding, points, *, sam, points_per_batch: int,
+                     mask_threshold: float, stability_offset: float):
     """The transformer per prompt batch, then the tail statistics (K6)
-    over all prompts, and the exact logits of the top K only."""
+    over all prompts: (keys (P, N, C), hyper (P, 3, C / 8), and per
+    candidate, prompt-major, iou (3P,), stability (3P,), boxes (3P, 4))."""
     P = points.shape[1]
     keys, hyper, iou = [], [], []
     for b in range(P // points_per_batch):
@@ -184,8 +184,17 @@ def _decode_and_filter_fused(embedding, points, *, sam,
         mask_threshold=mask_threshold, stability_offset=stability_offset)
     h = int(round(N ** 0.5))
     stability, boxes, _ = fold_stats(stats, sam.input_size / (4 * h))
-    stability = stability.reshape(-1)
-    boxes = boxes.reshape(-1, 4)
+    return keys, hyper3, iou, stability.reshape(-1), boxes.reshape(-1, 4)
+
+
+def _decode_and_filter_fused(embedding, points, *, sam,
+                             points_per_batch: int, mask_threshold: float,
+                             stability_offset: float, top_k: int):
+    """`fused_candidates`, then the exact logits of the top K only."""
+    keys, hyper3, iou, stability, boxes = fused_candidates(
+        embedding, points, sam=sam, points_per_batch=points_per_batch,
+        mask_threshold=mask_threshold, stability_offset=stability_offset)
+    h = int(round(keys.shape[1] ** 0.5))
     keep = top_k_indices(iou + 1e-3 * stability, top_k)
     prompt_idx, tok = keep // 3, keep % 3
     logits_k = sam.decode_tail(keys[prompt_idx],

@@ -7,11 +7,16 @@ segment_anything/modeling/image_encoder.py: ImageEncoderViT :17, Block
 module names follow the JAX parameter tree.
 
 Attention runs through `ops/flash_rpe.flash_rpe_attention` (K4) in
-windowed and global blocks alike: the CUDA kernel on the card, its plain
-version on the CPU.  Logits and softmax are float32 on both routes (the
-JAX package's unfused XLA path runs them in the compute dtype).  Windows
-pad the token grid with zero q, k and v (64 -> 70 at 14 x 14 windows);
-the padded tokens take part in attention as real keys, as in SAM.
+windowed and global blocks alike unless `flash` (`flash_windowed` for
+the windowed blocks) is False: the CUDA kernel on the card, its plain
+version on the CPU.  K4 is forward-only, so a model that is trained is
+built with `flash=False`, which takes the materialized, differentiable
+attention (`rpe_attention_plain`) on every device, as the JAX
+`flash=False` takes its XLA path.  Logits and softmax are float32 on all
+routes (the JAX package's unfused XLA path runs them in the compute
+dtype).  Windows pad the token grid with zero q, k and v (64 -> 70 at
+14 x 14 windows); the padded tokens take part in attention as real keys,
+as in SAM.
 """
 
 from __future__ import annotations
@@ -24,7 +29,10 @@ from torch import nn
 
 from sam6d_tpu_torch.models.layers import Dense, LayerNorm
 from sam6d_tpu_torch.models.vit import PatchEmbed
-from sam6d_tpu_torch.ops.flash_rpe import flash_rpe_attention
+from sam6d_tpu_torch.ops.flash_rpe import (
+    flash_rpe_attention,
+    rpe_attention_plain,
+)
 
 
 def window_partition(x: torch.Tensor, window: int):
@@ -53,13 +61,16 @@ class WindowAttention(nn.Module):
     """Attention over a (h, w) token grid with the decomposed rel-pos
     bias, optionally within window_size x window_size windows.  K4 takes
     the tables in the compute dtype: `cast_dense_weights` stores them so,
-    and the forward's cast is then a no-op."""
+    and the forward's cast is then a no-op.  flash=False: the
+    materialized attention on every device (differentiable)."""
 
     cast_with_dense = True
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
-                 grid: tuple[int, int], dtype=torch.float32):
+                 grid: tuple[int, int], dtype=torch.float32,
+                 flash: bool = True):
         super().__init__()
+        self.flash = flash
         self.qkv = Dense(dim, 3 * dim, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
         h, w = (window_size, window_size) if window_size > 0 else grid
@@ -84,8 +95,9 @@ class WindowAttention(nn.Module):
         nB = qkv.shape[0]
         qkv = qkv.reshape(nB, h * w, 3, H, hd).permute(2, 0, 3, 1, 4)
         q, k, v = (t.reshape(nB * H, h * w, hd).contiguous() for t in qkv)
-        out = flash_rpe_attention(q, k, v, self.rel_pos_h.to(q.dtype),
-                                  self.rel_pos_w.to(q.dtype), (h, w))
+        attend = flash_rpe_attention if self.flash else rpe_attention_plain
+        out = attend(q, k, v, self.rel_pos_h.to(q.dtype),
+                     self.rel_pos_w.to(q.dtype), (h, w))
         out = out.reshape(nB, H, h, w, hd).permute(0, 2, 3, 1, 4)
         out = out.reshape(nB, h, w, C)
         if ws > 0:
@@ -96,10 +108,11 @@ class WindowAttention(nn.Module):
 class SAMBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  window_size: int, grid: tuple[int, int],
-                 dtype=torch.float32):
+                 dtype=torch.float32, flash: bool = True):
         super().__init__()
         self.norm1 = LayerNorm(dim, dtype)
-        self.attn = WindowAttention(dim, num_heads, window_size, grid, dtype)
+        self.attn = WindowAttention(dim, num_heads, window_size, grid, dtype,
+                                    flash)
         self.norm2 = LayerNorm(dim, dtype)
         self.mlp_lin1 = Dense(dim, int(dim * mlp_ratio), dtype=dtype)
         self.mlp_lin2 = Dense(int(dim * mlp_ratio), dim, dtype=dtype)
@@ -152,19 +165,25 @@ class ImageEncoderViT(nn.Module):
                  global_attn_indexes: Sequence[int] = (7, 15, 23, 31),
                  dtype=torch.float32, flash: bool | None = None,
                  flash_windowed: bool | None = None):
-        """`flash` and `flash_windowed` are taken for the JAX signature's
-        sake (there they pick the Pallas kernel or XLA, tuned for TPU
-        grids) and choose nothing here: every block runs K4 on the card
-        and its plain version on the CPU."""
+        """flash: False takes the materialized, differentiable attention
+        in every block on every device (training: K4 is forward-only);
+        None or True takes `flash_rpe_attention` (K4 on the card, its
+        plain version on the CPU).  flash_windowed: the same choice for
+        the windowed blocks alone, None inheriting `flash`, as in the JAX
+        signature.  Where the JAX `flash=None` picks by backend (the
+        Pallas kernel on a TPU only), the port's None means K4 wherever
+        the tensors lie on the card."""
         super().__init__()
         g = img_size // patch_size
         self.patch_embed = PatchEmbed(3, embed_dim, patch_size, dtype)
         self.pos_embed = nn.Parameter(torch.zeros(1, g, g, embed_dim))
+        windowed = flash if flash_windowed is None else flash_windowed
         for i in range(depth):
             is_global = i in global_attn_indexes
             self.add_module(f"blocks_{i}", SAMBlock(
                 embed_dim, num_heads, mlp_ratio,
-                0 if is_global else window_size, (g, g), dtype))
+                0 if is_global else window_size, (g, g), dtype,
+                (flash if is_global else windowed) is not False))
         self.neck_0 = Conv2d(embed_dim, out_chans, 1, dtype)
         self.neck_1 = LayerNorm2d(out_chans)
         self.neck_2 = Conv2d(out_chans, out_chans, 3, dtype)

@@ -25,6 +25,13 @@ skips the 8-key n-tiles beyond N (design and reasons in the source's
 head comment).  Logits and softmax are float32 on both routes; the plain
 versions round the probabilities to the input dtype before the product
 with v, as the JAX reference does.
+
+Both kernels are forward-only, in this package and in the JAX one: the
+CUDA wrappers raise when a gradient is wanted through them (grad mode on
+and an input that requires one), so a loss taken through them cannot
+leave parameters without a gradient.  Training takes the materialized
+attention: `ImageEncoderViT(flash=False)` and `DinoViT(use_flash=False)`,
+as the JAX training tools build their models.
 """
 
 from __future__ import annotations
@@ -140,7 +147,18 @@ def _check_table(t, name, side, q):
                          f"aligned")
 
 
+def _forward_only(name, *tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is forward-only (as the Pallas kernel "
+            f"it replaces) and makes no autograd node, but an input requires "
+            f"a gradient; build the model with the materialized attention "
+            f"for training (ImageEncoderViT(flash=False), "
+            f"DinoViT(use_flash=False)) or call it under torch.no_grad()")
+
+
 def flash_rpe_attention_cuda(q, k, v, rel_pos_h, rel_pos_w, hw):
+    _forward_only("flash_rpe_attention", q, k, v, rel_pos_h, rel_pos_w)
     _check_qkv(q, k, v)
     h, w = hw
     if h * w != q.shape[1] or h > MAX_GRID or w > MAX_GRID:
@@ -153,6 +171,7 @@ def flash_rpe_attention_cuda(q, k, v, rel_pos_h, rel_pos_w, hw):
 
 
 def flash_attention_cuda(q, k, v):
+    _forward_only("flash_attention", q, k, v)
     _check_qkv(q, k, v)
     return launch(KERNEL_PLAIN, q, k, v, None, None, (0, 0),
                   torch.empty_like(q))

@@ -28,6 +28,12 @@ def _steps(ckpt_dir: str) -> list:
                   if f.endswith(".pt") and f[:-3].isdigit())
 
 
+def latest_step(ckpt_dir: str) -> int | None:
+    """The newest step saved in ckpt_dir; None when there is none."""
+    steps = _steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
 def save_train_state(ckpt_dir: str, state, step: int | None = None,
                      max_to_keep: int = 5) -> str:
     step = state.step if step is None else step
@@ -58,6 +64,12 @@ def restore_train_state(ckpt_dir: str, state, step: int | None = None):
     state.optimizer.load_state_dict(data["optimizer"])
     state.step = int(data["step"])
     return state
+
+
+def params_file(ckpt: str, name: str) -> str:
+    """The weights file `name` of a checkpoint directory, or `ckpt` itself
+    when it names an .npz file."""
+    return ckpt if ckpt.endswith(".npz") else os.path.join(ckpt, name)
 
 
 def save_params(path: str, model) -> str:

@@ -683,3 +683,66 @@ def test_rendered_stream_feeds_a_tiny_train_step_on_the_card(dev):
         stream.close()
     assert all(k.launches > n for k, n in zip(kernels, before))
     assert not any(p.is_alive() for p in stream.workers)
+
+
+# -- K4 / K5 are forward-only: training must not lose gradients ------------
+
+
+def test_flash_kernels_refuse_a_gradient(dev):
+    """K4 and K5 make no autograd node: under grad mode with an input that
+    requires a gradient the wrappers raise; under no_grad they serve."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(4, 64, 32, device=dev, generator=g)
+               for _ in range(3))
+    rh = torch.randn(15, 32, device=dev, generator=g)
+    rw = torch.randn(15, 32, device=dev, generator=g)
+    for req in ("q", "k", "v", "rel_pos_h"):
+        args = dict(q=q, k=k, v=v, rel_pos_h=rh, rel_pos_w=rw)
+        args[req] = args[req].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="forward-only"):
+            fr.flash_rpe_attention(**args, hw=(8, 8))
+        if req != "rel_pos_h":
+            with pytest.raises(RuntimeError, match="forward-only"):
+                fr.flash_attention(args["q"], args["k"], args["v"])
+        with torch.no_grad():  # serving: no gradient wanted
+            fr.flash_rpe_attention(**args, hw=(8, 8))
+            fr.flash_attention(args["q"], args["k"], args["v"])
+
+
+def test_tiny_models_train_on_the_card_as_on_the_cpu(dev):
+    """The tiny SAM (flash=False) and descriptor (use_flash=False) on a
+    training batch of their tools (phase 11c's), held to the CPU by
+    chip_smoke.grads_card_vs_cpu: the loss 1e-4; every parameter that the
+    CPU's loss reaches has a finite gradient on the card, within 1e-3
+    relative (Frobenius) of the CPU's plus 1e-6 absolute for the leaves
+    whose gradient is zero in exact arithmetic (an attention's key bias
+    shifts a whole softmax row: float noise on both devices); the serving
+    builds refuse a gradient."""
+    from chip_smoke import grads_card_vs_cpu
+    from sam6d_tpu_torch.models.ism.detector import normalize_rgb
+    from sam6d_tpu_torch.provider.training_dataset import make_procedural_mesh
+    from sam6d_tpu_torch.tools import train_ism_descriptor as t_desc
+    from sam6d_tpu_torch.tools import train_tiny_sam as t_sam
+
+    rng = np.random.RandomState(11)
+    meshes = [make_procedural_mesh(rng) for _ in range(16)]
+    imgs, pts, gts = (torch.from_numpy(a) for a in
+                      t_sam.make_training_batch(meshes, rng, B=8, P=8))
+    rng = np.random.RandomState(0)
+    pools = t_desc.render_pools(32, 8, 64, rng)
+    x = normalize_rgb(torch.from_numpy(t_desc.make_batch(pools, rng, 24)))
+    grads_card_vs_cpu(
+        dev, t_sam.make_tiny_sam(device="cpu", flash=False),
+        lambda m, d: t_sam.sam_loss(m, imgs.to(d), pts.to(d), gts.to(d))[0],
+        "tiny SAM (flash=False)")
+    grads_card_vs_cpu(
+        dev, t_desc.make_descriptor(t_desc.tiny_descriptor_config(), "cpu"),
+        lambda m, d: t_desc.nt_xent(m.vit(x.to(d))[0], 0.1)[0],
+        "tiny descriptor (use_flash=False)")
+    serving = t_sam.make_tiny_sam(device=dev, flash=None)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        t_sam.sam_loss(serving, imgs.to(dev), pts.to(dev), gts.to(dev))
+    served = t_desc.make_descriptor(t_desc.tiny_descriptor_config(), dev,
+                                    use_flash=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        served.vit(x.to(dev))
