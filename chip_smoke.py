@@ -125,8 +125,9 @@ process per source, all at once), then:
    one under the same injected uniforms (K1 and K2 required),
    `sync_hosts`, `write_shard_and_merge`, one step of `train_cli.main
    --tp 1` at batch 4 through the distributed code (finite metrics, an
-   applied update, K1, K2, K3 and K7 required), the group destroyed; `profiling.trace` around one PEM request naming its
-   `annotate` span, and `debug_tap` writing a tensor;
+   applied update, K1, K2, K3 and K7 required), the group destroyed; `profiling.trace` around one PEM request (the
+   CUDA activity alone, the program's spans on its clock, every kernel
+   inside the request's span), and `debug_tap` writing a tensor;
 11. the accuracy loop (`sam6d_tpu_torch/tools/`), in the same temporary
    directory, launches counted only inside the driven calls
    (`LaunchTally`): (a) `smoke_train_eval`'s rendered recipe (the small
@@ -3088,8 +3089,10 @@ def check_distributed(dev, tmp: Path, request):
 
 
 def check_tooling(dev, tmp: Path, request):
-    """`profiling.trace` around one PEM request names its `annotate`
-    span; `debug_tap` with its variable set writes the tensor."""
+    """`profiling.trace` around one PEM request: the CUDA activity, and
+    the program's spans (`utils/timer.stage`: a `stage` span around the
+    request, `PEMRunner.infer`'s own inside it) on the trace's clock;
+    `debug_tap` with its variable set writes the tensor."""
     import os
 
     import numpy as np
@@ -3098,7 +3101,7 @@ def check_tooling(dev, tmp: Path, request):
     from sam6d_tpu_torch.config import default_pem_config
     from sam6d_tpu_torch.ops.debug import DEBUG_ENV, debug_tap
     from sam6d_tpu_torch.pipeline.pem_runner import PEMRunner
-    from sam6d_tpu_torch.utils import profiling
+    from sam6d_tpu_torch.utils import profiling, timer
 
     cfg = default_pem_config()
     runner = PEMRunner(cfg, device=dev, dtype=torch.bfloat16, seed=0)
@@ -3113,14 +3116,23 @@ def check_tooling(dev, tmp: Path, request):
     runner.infer(inp)
     trace_dir = tmp / "p10_trace"
     with profiling.trace(str(trace_dir)):
-        with profiling.annotate("phase10_pem_request"):
+        with timer.stage(None, "phase10_pem_request"):
             runner.infer(inp)
     traces = list(trace_dir.glob("trace_*.json"))
     require(len(traces) == 1, f"profiling.trace wrote {traces}")
     events = json.loads(traces[0].read_text())["traceEvents"]
-    require(any(e.get("name") == "phase10_pem_request" for e in events),
-            "the trace does not name the annotate span")
-    n_device = sum(1 for e in events if e.get("cat") == "kernel")
+    spans = {e["name"]: e for e in events if e.get("cat") == "program_span"}
+    require({"phase10_pem_request", "pem_runner.infer", "pem.forward",
+             "pem.coarse_solve"} <= set(spans),
+            f"the trace's spans are {sorted(spans)}")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    n_device = len(kernels)
+    top = spans["phase10_pem_request"]
+    require(not any(e.get("cat") == "cpu_op" for e in events),
+            "profiling.trace recorded the CPU activity by default")
+    require(n_device > 0 and all(
+        top["ts"] <= e["ts"] <= top["ts"] + top["dur"] for e in kernels),
+        "a kernel of the request lies outside its span on the trace's clock")
     x = torch.randn(4, 5, device=dev)
     os.environ[DEBUG_ENV] = "1"
     try:
@@ -3131,7 +3143,8 @@ def check_tooling(dev, tmp: Path, request):
     saved = np.load(tmp / "p10_taps" / "torch_debug_node_phase10.npy")
     require(np.array_equal(saved, x.cpu().numpy()), "debug_tap's file")
     log(f"profiling.trace: {traces[0].stat().st_size} bytes, "
-        f"{len(events)} events ({n_device} device kernels), the span named; "
+        f"{len(events)} events ({n_device} device kernels, each inside the "
+        f"request's span; {len(spans)} span names); "
         f"debug_tap wrote the tensor")
     return dict(trace_bytes=traces[0].stat().st_size, trace_events=len(events),
                 trace_kernels=n_device)

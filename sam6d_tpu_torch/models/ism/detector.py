@@ -86,6 +86,7 @@ class ISMDetector:
         # the size filter, the descriptor bucket, above the confidence
         # threshold, and after the per-object NMS.
         self.last_counts: dict = {}
+        self.requests = 0  # detect calls, numbering their spans
 
     def _tensor(self, x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), device=self.device, dtype=dtype)
@@ -127,8 +128,15 @@ class ISMDetector:
         """One frame (reference run_inference_custom.py:184-258): image
         (H, W, 3) uint8 RGB, optional metric depth (H, W) and intrinsics
         (3, 3) for the geometric score.  Returns the final detections.
-        `timer` (`utils/timer.StageTimer`) records the stages."""
+        `timer` (`utils/timer.StageTimer`) records the stages; while
+        spans are recorded, `ism.detect` holds them (its request the
+        call's number)."""
         assert self.ref_data is not None, "call onboard_templates first"
+        self.requests += 1
+        with stage(None, "ism.detect", request=self.requests):
+            return self._detect(image, depth, K, timer)
+
+    def _detect(self, image, depth, K, timer) -> Detections:
         cfg = self.cfg
         proposals = self.segmentor.generate_masks(image, timer=timer)
         dets = Detections(masks=proposals["masks"], boxes=proposals["boxes"])

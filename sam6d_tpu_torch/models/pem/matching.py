@@ -35,6 +35,7 @@ from sam6d_tpu_torch.ops.pointcloud import (
 )
 from sam6d_tpu_torch.ops.procrustes import weighted_procrustes
 from sam6d_tpu_torch.ops.sampling import weighted_sample_2d
+from sam6d_tpu_torch.utils.timer import stage
 
 
 def _smallest_k(x, k: int):
@@ -247,14 +248,16 @@ class CoarsePointMatching(nn.Module):
             init_R, init_t = aug_pose_noise(gt_r, gt_t, noise, generator)
             return init_R, init_t, attens
         norm_model = model_pts / (radius[:, None, None] + 1e-6)
-        if solver is not None:
-            init_R, init_t = solver(attens[-1], p1, p2, norm_model,
-                                    dist_field, uniforms, generator)
-            return init_R, init_t, attens
-        init_R, init_t = compute_coarse_Rt(
-            attens[-1], p1, p2, norm_model, cfg.nproposal1, cfg.nproposal2,
-            dist_field=dist_field, uniforms=uniforms, generator=generator,
-        )
+        with stage(None, "pem.coarse_solve"):
+            if solver is not None:
+                init_R, init_t = solver(attens[-1], p1, p2, norm_model,
+                                        dist_field, uniforms, generator)
+            else:
+                init_R, init_t = compute_coarse_Rt(
+                    attens[-1], p1, p2, norm_model, cfg.nproposal1,
+                    cfg.nproposal2, dist_field=dist_field,
+                    uniforms=uniforms, generator=generator,
+                )
         return init_R, init_t, attens
 
 
@@ -377,6 +380,7 @@ class FinePointMatching(nn.Module):
             return init_R, pred_t, torch.zeros(B, dtype=p1.dtype,
                                                device=p1.device), attens
         norm_model = model_pts / (radius[:, None, None] + 1e-6)
-        pred_R, pred_t, score = compute_fine_Rt(attens[-1], p1, p2,
-                                                norm_model, cfg.dis_thres)
+        with stage(None, "pem.fine_solve"):
+            pred_R, pred_t, score = compute_fine_Rt(attens[-1], p1, p2,
+                                                    norm_model, cfg.dis_thres)
         return pred_R, pred_t * (radius[:, None] + 1e-6), score, attens

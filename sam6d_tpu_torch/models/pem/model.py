@@ -25,6 +25,7 @@ from sam6d_tpu_torch.models.pem.matching import (
 )
 from sam6d_tpu_torch.ops.distance_field import build_min_dist_field
 from sam6d_tpu_torch.ops.fps import sample_pts_feats
+from sam6d_tpu_torch.utils.timer import stage
 
 BG_POINT = 100.0  # the bg token's coordinate (reference model:30)
 
@@ -104,33 +105,41 @@ class PEM(nn.Module):
         replacement of the coarse hypothesis solve, (atten, p1, p2,
         norm_model, dist_field, uniforms, generator) -> (R, t), e.g. the
         hypothesis-parallel `parallel/hyp_parallel.py` (the JAX
-        forward_with_bank's `coarse_solver`).
+        forward_with_bank's `coarse_solver`).  Spans (`utils/timer.stage`):
+        pem.features (ViT-B), pem.sample (K1), pem.geo_embed (K2),
+        pem.coarse and pem.fine (their solves inside, `matching.py`).
         """
         B = pts.shape[0]
 
         def tile(x):
             return x.expand((B,) + x.shape[1:])
 
-        radius = bank["radius"].expand(B)
-        dense_pm = pts / (radius[:, None, None] + 1e-6)
-        dense_fm = self.feature_extraction.get_img_feats(rgb, rgb_choose)
-        sparse_pm, sparse_fm, fps_idx_m = sample_pts_feats(
-            dense_pm.contiguous(), dense_fm, self.cfg.coarse_npoint,
-            return_index=True,
-        )
-        geo_m = self.geo_embedding(self._with_bg(sparse_pm))
+        with stage(None, "pem.features"):
+            radius = bank["radius"].expand(B)
+            dense_pm = pts / (radius[:, None, None] + 1e-6)
+            dense_fm = self.feature_extraction.get_img_feats(rgb, rgb_choose)
+        with stage(None, "pem.sample"):
+            sparse_pm, sparse_fm, fps_idx_m = sample_pts_feats(
+                dense_pm.contiguous(), dense_fm, self.cfg.coarse_npoint,
+                return_index=True,
+            )
+        with stage(None, "pem.geo_embed"):
+            geo_m = self.geo_embedding(self._with_bg(sparse_pm))
         geo_o = tile(bank["geo_o"])
-        init_R, init_t, _ = self.coarse_point_matching(
-            sparse_pm, sparse_fm, geo_m, tile(bank["sparse_po"]),
-            tile(bank["sparse_fo"]), geo_o, radius, model_pts,
-            dist_field=bank["dist_field"], uniforms=uniforms,
-            generator=generator, solver=coarse_solver,
-        )
-        pred_R, pred_t, score, _ = self.fine_point_matching(
-            dense_pm, dense_fm, geo_m, fps_idx_m, tile(bank["dense_po_n"]),
-            geo_o, tile(bank["fps_idx_o"]), radius, model_pts, init_R, init_t,
-            f2_init=tile(bank["fine_f2"]),
-        )
+        with stage(None, "pem.coarse"):
+            init_R, init_t, _ = self.coarse_point_matching(
+                sparse_pm, sparse_fm, geo_m, tile(bank["sparse_po"]),
+                tile(bank["sparse_fo"]), geo_o, radius, model_pts,
+                dist_field=bank["dist_field"], uniforms=uniforms,
+                generator=generator, solver=coarse_solver,
+            )
+        with stage(None, "pem.fine"):
+            pred_R, pred_t, score, _ = self.fine_point_matching(
+                dense_pm, dense_fm, geo_m, fps_idx_m,
+                tile(bank["dense_po_n"]), geo_o, tile(bank["fps_idx_o"]),
+                radius, model_pts, init_R, init_t,
+                f2_init=tile(bank["fine_f2"]),
+            )
         return {
             "pred_R": pred_R,
             "pred_t": pred_t,

@@ -39,6 +39,7 @@ from sam6d_tpu_torch.pipeline.pem_data import (
     prepare_test_data,
 )
 from sam6d_tpu_torch.train.checkpoint import restore_params_tolerant
+from sam6d_tpu_torch.utils.timer import count, stage
 
 
 class PEMRunner:
@@ -74,6 +75,7 @@ class PEMRunner:
         self.tem_feat = None
         self.template_bank = None
         self._onboarded_dir = None
+        self.requests = 0  # infer calls, numbering their spans
 
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, device=self.device, dtype=dtype)
@@ -188,21 +190,36 @@ class PEMRunner:
 
         Returns numpy pred_R (n, 3, 3), pred_t (n, 3), pose_score (n,)
         and score = pose_score * detection score.
+
+        Spans (`utils/timer.stage`): `pem_runner.infer` (its request the
+        call's number), and for each chunk `pem_runner.upload` (padding,
+        host to device), `pem.forward` and `pem_runner.download` (the
+        poses back to the host); counters `pem_runner.rows` and
+        `pem_runner.pad_rows`.
         """
         if self.template_bank is None:
             raise RuntimeError("call onboard() or onboard_arrays() first")
+        self.requests += 1
+        with stage(None, "pem_runner.infer", request=self.requests):
+            return self._infer(input_data, uniforms)
+
+    def _infer(self, input_data: dict, uniforms) -> dict:
         n = len(input_data["pts"])
         bucket = self.bucket_for(n)
         rows = self._rows(bucket)
         solver = self._coarse_solver()
         if uniforms is not None:
-            uniforms = tuple(self._tensor(u, torch.float32) for u in uniforms)
+            with stage(None, "pem_runner.upload"):
+                uniforms = tuple(self._tensor(u, torch.float32)
+                                 for u in uniforms)
             if solver is None:
                 uniforms = tuple(u[rows] for u in uniforms)
         parts = []
         for lo in range(0, n, bucket):
             hi = min(lo + bucket, n)
             pad = bucket - (hi - lo)
+            count("pem_runner.rows", hi - lo)
+            count("pem_runner.pad_rows", pad)
 
             def padded(x, dtype=None):
                 x = np.asarray(x)[lo:hi]
@@ -217,21 +234,24 @@ class PEMRunner:
                 u = tuple(torch.rand(shape, generator=self.generator,
                                      device=self.device)[rows]
                           for _ in range(2))
-            out = self.model.forward_with_bank(
-                padded(input_data["pts"], torch.float32),
-                padded(input_data["rgb"], torch.float32),
-                padded(input_data["rgb_choose"], torch.long),
-                padded(input_data["model_pts"], torch.float32),
-                self.template_bank, generator=self.generator,
-                uniforms=u, coarse_solver=solver,
-            )
-            res = [out[k].float() for k in ("pred_R", "pred_t",
-                                            "pred_pose_score")]
-            if self._split_batch:
-                group = axis_group(self.mesh, DP)
-                res = [all_gather_rows(r, group).flatten(0, 1) for r in res]
-            m = hi - lo
-            parts.append([r[:m].cpu().numpy() for r in res])
+            with stage(None, "pem_runner.upload"):
+                args = (padded(input_data["pts"], torch.float32),
+                        padded(input_data["rgb"], torch.float32),
+                        padded(input_data["rgb_choose"], torch.long),
+                        padded(input_data["model_pts"], torch.float32))
+            with stage(None, "pem.forward"):
+                out = self.model.forward_with_bank(
+                    *args, self.template_bank, generator=self.generator,
+                    uniforms=u, coarse_solver=solver)
+            with stage(None, "pem_runner.download"):
+                res = [out[k].float() for k in ("pred_R", "pred_t",
+                                                "pred_pose_score")]
+                if self._split_batch:
+                    group = axis_group(self.mesh, DP)
+                    res = [all_gather_rows(r, group).flatten(0, 1)
+                           for r in res]
+                m = hi - lo
+                parts.append([r[:m].cpu().numpy() for r in res])
         pred_R, pred_t, pose_score = (np.concatenate(p) for p in zip(*parts))
         return {
             "pred_R": pred_R,

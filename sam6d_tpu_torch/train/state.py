@@ -31,6 +31,7 @@ from sam6d_tpu_torch.device import resolve_device
 from sam6d_tpu_torch.models.pem.model import PEM
 from sam6d_tpu_torch.params import init_random_
 from sam6d_tpu_torch.train.loss import pem_loss
+from sam6d_tpu_torch.utils.timer import stage
 
 _F32 = np.float32
 RGB_MEAN = (0.485, 0.456, 0.406)
@@ -220,45 +221,59 @@ def train_step(state: TrainState, batch: dict, generator=None,
     the global ones: this rank takes its dp rows of them, or of the
     generator's one draw for the whole batch, and the gradients, the
     metrics and the norm are those of the whole batch
-    (`parallel/sharding.py`).
+    (`parallel/sharding.py`).  Spans (`utils/timer.stage`): train.step
+    (its request `state.step`) over train.to_device, train.forward (through
+    the loss), train.backward, train.read_metrics (the host's read of the
+    metrics and the gradient norm, a sync) and train.optimizer.
     """
+    with stage(None, "train.step", request=state.step):
+        return _train_step(state, batch, generator, noise)
+
+
+def _train_step(state: TrainState, batch: dict, generator, noise) -> dict:
     model = state.model
     par = state.parallel
     dev = next(model.parameters()).device
-    if par is not None:
-        noise = par.pose_noise(len(batch["gt_r"]), generator, dev, noise)
-        batch = par.shard_batch(batch)
-    b = _to_device(batch, dev)
+    with stage(None, "train.to_device"):
+        if par is not None:
+            noise = par.pose_noise(len(batch["gt_r"]), generator, dev, noise)
+            batch = par.shard_batch(batch)
+        b = _to_device(batch, dev)
     saved = {k: v.clone() for k, v in model.named_buffers()}
     model.zero_grad(set_to_none=True)
     with torch.enable_grad():
-        out = model.train_forward(
-            b["pts"], b["rgb"], b["rgb_choose"], b["tem_rgb"], b["tem_pts"],
-            b["tem_choose"], b["gt_r"], b["gt_t"], generator=generator,
-            noise=noise)
-        loss, metrics = pem_loss(out, b["gt_r"], b["gt_t"],
-                                 state.coarse_dis_thres, state.fine_dis_thres)
-        loss.backward()
-    params = list(model.parameters())
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-             for p in params]
-    names = list(metrics)
-    values = torch.stack([metrics[k].detach().float() for k in names])
-    if par is None:
-        grad_norm = global_norm(grads)
-    else:
-        par.reduce_grads(grads)
-        grad_norm = par.grad_norm(params, grads)
-        values = par.mean_over_dp(values)
-    values = torch.cat([values, grad_norm.reshape(1)]).tolist()
+        with stage(None, "train.forward"):
+            out = model.train_forward(
+                b["pts"], b["rgb"], b["rgb_choose"], b["tem_rgb"],
+                b["tem_pts"], b["tem_choose"], b["gt_r"], b["gt_t"],
+                generator=generator, noise=noise)
+            loss, metrics = pem_loss(out, b["gt_r"], b["gt_t"],
+                                     state.coarse_dis_thres,
+                                     state.fine_dis_thres)
+        with stage(None, "train.backward"):
+            loss.backward()
+    with stage(None, "train.read_metrics"):
+        params = list(model.parameters())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        names = list(metrics)
+        values = torch.stack([metrics[k].detach().float() for k in names])
+        if par is None:
+            grad_norm = global_norm(grads)
+        else:
+            par.reduce_grads(grads)
+            grad_norm = par.grad_norm(params, grads)
+            values = par.mean_over_dp(values)
+        values = torch.cat([values, grad_norm.reshape(1)]).tolist()
     out_metrics = dict(zip(names, values[:-1]))
     gn = values[-1]
     finite = math.isfinite(gn)
-    if not finite:
-        with torch.no_grad():
-            for k, v in model.named_buffers():
-                v.copy_(saved[k])
-    state.optimizer.step(grads, gn)
+    with stage(None, "train.optimizer"):
+        if not finite:
+            with torch.no_grad():
+                for k, v in model.named_buffers():
+                    v.copy_(saved[k])
+        state.optimizer.step(grads, gn)
     model.zero_grad(set_to_none=True)
     state.step += 1
     out_metrics.update(

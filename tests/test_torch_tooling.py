@@ -8,18 +8,29 @@ import pytest
 import torch
 
 from sam6d_tpu_torch.ops.debug import DEBUG_ENV, debug_tap
-from sam6d_tpu_torch.utils import profiling
+from sam6d_tpu_torch.utils import profiling, timer
 
 
 def test_trace_writes_a_chrome_trace_naming_the_span(tmp_path):
-    with profiling.trace(str(tmp_path / "trace")) as prof:
-        with profiling.annotate("pem_request_span"):
+    """The program's spans and counters inside the block land in the
+    Chrome trace, on the profiler's clock: the span holds the matmul's
+    CPU event (`cpu=True`; without a card it is recorded anyway)."""
+    with profiling.trace(str(tmp_path / "trace"), cpu=True) as prof:
+        with timer.stage(None, "pem_request_span", request=3):
+            timer.count("rows", 2)
             torch.randn(64, 64) @ torch.randn(64, 64)
     files = list((tmp_path / "trace").glob("trace_*.json"))
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
-    assert any(e.get("name") == "pem_request_span" for e in events)
-    assert any(e.key == "pem_request_span" for e in prof.key_averages())
+    span = [e for e in events if e.get("name") == "pem_request_span"]
+    assert len(span) == 1 and span[0]["cat"] == "program_span"
+    assert span[0]["args"] == {"request": 3}
+    assert [e["args"] for e in events if e.get("cat") == "program_counter"] \
+        == [{"rows": 2}]
+    mm = [e for e in events if e.get("name") == "aten::mm"]
+    assert mm and span[0]["ts"] <= mm[0]["ts"] \
+        and mm[0]["ts"] + mm[0]["dur"] <= span[0]["ts"] + span[0]["dur"]
+    assert any(e.key == "aten::mm" for e in prof.key_averages())
 
 
 def test_trace_disabled_writes_nothing(tmp_path):
