@@ -17,7 +17,10 @@ process per source, all at once), then:
    alone; K1 through the route its plan picks at each shape; K2 at the
    training shape also with the winners that K3 reads, both kernels fed
    the same winners; K7 on uniform, ball-query (also on a dense patch)
-   and one-target indices, its bits held to the CPU's); plus the
+   and one-target indices, its bits held to the CPU's; K8 at the two
+   pose solves' shapes through the route the wrapper picks and through
+   the other where it can, with the share of the coarse problems whose
+   R and t equal the plain version's bit for bit); plus the
    tiny-config PEM template bank, a tiny-config ISM frame (float32), a
    tiny FastSAM (the "n" scale at 160 px: head outputs and
    generate_masks) and bfloat16 SAM-encoder and DINOv2 blocks at the full
@@ -148,7 +151,7 @@ process per source, all at once), then:
    `ism_accuracy_eval` (2 held-out objects x 3 frames, a bank of 6)
    with the depth connected-components and the tiny-SAM segmentors over
    the trained weights and (a)'s PEM: selection accuracy, template-view
-   error and the ISM -> PEM AR; K4, K5 and K6 required there, all seven
+   error and the ISM -> PEM AR; K4, K5 and K6 required there, all eight
    kernels in the phase.
 
 Any failure exits non-zero.  The last lines are the nvidia-smi name and
@@ -253,12 +256,13 @@ def all_kernels():
         flash_rpe,
         fps,
         geo_embed,
+        procrustes,
         scatter_rows,
     )
 
     return [fps.KERNEL, geo_embed.KERNEL, flash_rpe.KERNEL_RPE,
             flash_rpe.KERNEL_PLAIN, decode_tail.KERNEL, geo_embed.KERNEL_BWD,
-            scatter_rows.KERNEL]
+            scatter_rows.KERNEL, procrustes.KERNEL]
 
 
 def phase_environment():
@@ -549,7 +553,7 @@ def phase_slice(dev):
     import torch
 
     from sam6d_tpu_torch.config import default_pem_config
-    from sam6d_tpu_torch.ops import fps, geo_embed
+    from sam6d_tpu_torch.ops import fps, geo_embed, procrustes
     from sam6d_tpu_torch.pipeline.pem_runner import PEMRunner
 
     cfg = default_pem_config()
@@ -577,7 +581,7 @@ def phase_slice(dev):
                 "score": np.ones(n, np.float32)}
 
     requests = [request(1), request(1), request(1), request(5)]
-    kernels = [fps.KERNEL, geo_embed.KERNEL]
+    kernels = [fps.KERNEL, geo_embed.KERNEL, procrustes.KERNEL]
     torch.cuda.synchronize()
 
     for k in kernels:
@@ -1275,6 +1279,72 @@ def check_scatter_rows(dev):
             kernels_ms=kernels_ms, launches_a_call=launches_a_call))
         log(f"scatter_rows {rows[-1]}")
         del idx, dy, flat, dyf, bufs
+    return rows
+
+
+def check_procrustes(dev):
+    """K8 at the pose solves' shapes at the bin's largest bucket: the
+    coarse (16, 6000) problems of 3 points without weights, the fine 16
+    of 2048 with the fine stage's weights (a few zero, the rest in (0, 1)).
+    Required: R and t within 1e-5 of the plain version on the card, and
+    the bare launch's result equal to the wrapper's.  Reported: the share
+    of problems whose R and t equal the plain version's bit for bit, the
+    times through the wrapper (`ms`), alone (`kernel_ms`: 20 bare launches
+    between two events, /20) and of the plain version; each route where
+    it can take the shape (`route_ms`: the thread route takes problems of
+    THREAD_N points alone).  Bound: the inputs read and R, t written once;
+    about 42 float32 operations a point and 1300 a problem's 3x3 solve."""
+    import torch
+
+    from sam6d_tpu_torch.ops import procrustes as pr
+
+    rows = []
+    for lead, n, weighted, reps in (((16, 6000), 3, False, 10),
+                                    ((16,), 2048, True, 10)):
+        g = torch.Generator(device=dev).manual_seed(n)
+        src = torch.randn(*lead, n, 3, generator=g, device=dev)
+        rot, _ = torch.linalg.qr(torch.randn(*lead, 3, 3, generator=g,
+                                             device=dev))
+        ref = (src @ rot.transpose(-1, -2) + 0.01 * torch.randn(
+            *lead, n, 3, generator=g, device=dev))
+        w = None
+        if weighted:
+            w = torch.rand(*lead, n, generator=g, device=dev)
+            w[torch.rand(*lead, n, generator=g, device=dev) < 0.1] = 0.0
+        P = math.prod(lead)
+        s2, r2 = src.reshape(P, n, 3), ref.reshape(P, n, 3)
+        w2 = None if w is None else w.reshape(P, n)
+        with torch.no_grad():
+            R, t = pr.weighted_procrustes(src, ref, w)
+        Rp, tp = pr.weighted_procrustes_plain(src, ref, w)
+        route = pr.procrustes_route(n)
+        bufs = pr.prepare(s2)
+        bare = {r: (lambda r=r: pr.launch(s2, r2, w2, *bufs, 0.0, 1e-5, r))
+                for r in pr.ROUTES if r == "block" or n == pr.THREAD_N}
+        bare[route]()
+        torch.cuda.synchronize()
+        err = max(float((R - Rp).abs().max()), float((t - tp).abs().max()))
+        require(err <= 1e-5, f"procrustes {lead} x {n}: {err} from the plain")
+        require(torch.equal(bufs[0], R.reshape(P, 3, 3))
+                and torch.equal(bufs[1], t.reshape(P, 3)),
+                f"procrustes {lead} x {n}: the bare launch differs")
+        same = ((R == Rp).flatten(-2).all(-1) & (t == tp).all(-1))
+        det = torch.linalg.det(R.double())
+        tm = time_in_turns({
+            "kernel": lambda: pr.weighted_procrustes(src, ref, w),
+            "plain": lambda: pr.weighted_procrustes_plain(src, ref, w),
+        }, reps)
+        tb = time_in_turns(bare, reps, burst=20)
+        nbytes = P * n * (24 + (4 if weighted else 0)) + P * 48
+        b_ms, b_by = bound(nbytes, P * (42 * n + 1300), "float32")
+        rows.append(dict(
+            shape=f"{lead} x ({n}, 3){' weighted' if weighted else ''}",
+            route=route, max_abs_err=err,
+            bitwise_share=float(same.float().mean()),
+            max_det_err=float((det - 1).abs().max()),
+            ms=tm["kernel"], kernel_ms=tb[route], plain_ms=tm["plain"],
+            route_ms=tb, bound_ms=b_ms, bound_by=b_by))
+        log(f"procrustes {rows[-1]}")
     return rows
 
 
@@ -3554,6 +3624,7 @@ def main():
         flash_rpe,
         fps,
         geo_embed,
+        procrustes,
         scatter_rows,
     )
 
@@ -3568,6 +3639,7 @@ def main():
     tail_rows = check_decode_tail(dev)
     bwd_rows = check_geo_embed_bwd(dev)
     scatter_rows_ = check_scatter_rows(dev)
+    procrustes_rows = check_procrustes(dev)
     check_tiny_bank(dev)
     check_tiny_ism(dev)
     tiny_fs = check_tiny_fastsam(dev)
@@ -3680,6 +3752,18 @@ def main():
                    "Tensor.index_add_ of float32 rows at flat indices, both "
                    "built beforehand, not timed"),
              device_in_step=train["profile"]["named"]["scatter_rows (K7)"]),
+        # K8 runs on the serving paths alone (the slice's two solves a
+        # request); its row is the coarse solve's.
+        {"name": procrustes.KERNEL.name, "route": "cuda",
+         "source": str(procrustes.KERNEL.source.relative_to(ROOT)),
+         "replaces": procrustes.KERNEL.replaces,
+         "launches": sl["launches"][procrustes.KERNEL.name],
+         "max_abs_err": max(r["max_abs_err"] for r in procrustes_rows),
+         **{k: procrustes_rows[0][k] for k in (
+             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+             "shape")},
+         "library": "none: no PyTorch call solves batched weighted "
+                    "Procrustes", "by_shape": procrustes_rows},
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

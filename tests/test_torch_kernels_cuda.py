@@ -31,6 +31,8 @@ from sam6d_tpu_torch.params import init_random_
 sys.path.insert(0, str(Path(__file__).resolve().parent / "helpers"))
 from ball_query_clouds import ball_query_rows, synthetic_clouds  # noqa: E402
 from fps_clouds import cross_block_ties  # noqa: E402
+from procrustes_cases import CASES as PROCRUSTES_CASES  # noqa: E402
+from procrustes_cases import procrustes_case  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -746,3 +748,180 @@ def test_tiny_models_train_on_the_card_as_on_the_cpu(dev):
                                     use_flash=True)
     with pytest.raises(RuntimeError, match="forward-only"):
         served.vit(x.to(dev))
+
+
+def _procrustes_case(case, dev):
+    """`procrustes_cases.procrustes_case` as tensors on dev, with its numpy
+    inputs."""
+    arrays = procrustes_case(case, np.random.RandomState(len(case)))
+    return arrays, tuple(
+        x if x is None or isinstance(x, float)
+        else torch.from_numpy(x).to(dev) for x in arrays)
+
+
+def _hold_procrustes(case, src, R, t, Rw, tw):
+    """R, t against a reference's Rw, tw within 1e-5.  A rank-1 H leaves R
+    free about the line; there the line's image and t are held (what the
+    sets determine)."""
+    torch.testing.assert_close(t, tw, atol=1e-5, rtol=0)
+    if case == "fine_rank1":
+        line = src[..., 1, :] - src[..., 0, :]
+        line = (line / line.norm(dim=-1, keepdim=True))[..., None]
+        torch.testing.assert_close(R @ line, Rw @ line, atol=1e-5, rtol=0)
+    else:
+        torch.testing.assert_close(R, Rw, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", PROCRUSTES_CASES)
+def test_procrustes_kernel_matches_plain(dev, case):
+    """K8 through `weighted_procrustes` against the plain version on the
+    same card: R and t within 1e-5; det(R) = 1 within 1e-5 wherever the
+    plain version's is (a near-collinear triplet's s3 sits at float32
+    noise, about 1e-4 s1, the rank test's own threshold: where noise
+    passes it, U comes out off orthonormal in the plain version too).  A
+    rank-1 H leaves R free about the line; the thread route sums as the
+    plain version does and gives its R, the block route sums in another
+    order (`_hold_procrustes`)."""
+    from sam6d_tpu_torch.ops import procrustes as pr
+
+    _, (src, ref, weights, thresh) = _procrustes_case(case, dev)
+    launches = pr.KERNEL.launches
+    with torch.no_grad():
+        R, t = pr.weighted_procrustes(src, ref, weights, thresh)
+    Rp, tp = pr.weighted_procrustes_plain(src, ref, weights, thresh)
+    torch.cuda.synchronize()
+    assert pr.KERNEL.launches == launches + 1
+    assert R.shape == Rp.shape and t.shape == tp.shape
+    det = np.linalg.det(R.double().cpu().numpy())
+    proper = np.abs(np.linalg.det(Rp.double().cpu().numpy()) - 1.0) <= 1e-5
+    assert proper.mean() > 0.99
+    assert np.abs(det[proper] - 1.0).max() <= 1e-5
+    _hold_procrustes(case, src, R, t, Rp, tp)
+
+
+@pytest.mark.parametrize("case", ["coarse", "fine"])
+def test_procrustes_kernel_matches_the_jax_package(dev, case):
+    """K8's R and t, copied to the CPU, against the JAX package's
+    `weighted_procrustes` on the same numpy inputs: the fine solve's 3
+    problems of 2048 weighted correspondences within 1e-5; the coarse
+    solve's (4, 6000) triplets with a median difference under 1e-6, 90%
+    of them within 1e-5 and 95% within 1e-4.  Not every triplet: the
+    reference's float32 solve of three points moves by more than 1e-5 on
+    about 8% of random triplets when only the order of a 3-term sum
+    changes, and the card's reductions (which K8 follows) sum a 3-long
+    last dim as (x0 + x2) + x1, the CPU's in turn.  The JAX package runs
+    on the CPU alone, and the test skips where jax is not installed or
+    has already taken another platform; the CPU tests hold the plain
+    version to the JAX package on these inputs, per problem."""
+    try:
+        import jax
+    except ImportError:
+        pytest.skip("the JAX package needs jax, which this machine lacks")
+    jax.config.update("jax_platforms", "cpu")
+    if jax.default_backend() != "cpu":
+        pytest.skip("jax already runs on another platform than the CPU")
+    import jax.numpy as jnp
+    from sam6d_tpu.ops import procrustes as jpr
+    from sam6d_tpu_torch.ops import procrustes as pr
+
+    (src_np, ref_np, w_np, thresh), (src, ref, weights, _) = (
+        _procrustes_case(case, dev))
+    with torch.no_grad():
+        R, t = pr.weighted_procrustes(src, ref, weights, thresh)
+    Rj, tj = (torch.tensor(np.asarray(x)) for x in jpr.weighted_procrustes(
+        jnp.asarray(src_np), jnp.asarray(ref_np),
+        None if w_np is None else jnp.asarray(w_np), thresh))
+    R, t = R.cpu(), t.cpu()
+    if case == "fine":
+        _hold_procrustes(case, src.cpu(), R, t, Rj, tj)
+        return
+    err = torch.maximum((R - Rj).abs().flatten(-2).amax(-1),
+                        (t - tj).abs().amax(-1)).flatten()
+    shares = (float(err.median()), float((err <= 1e-5).float().mean()),
+              float((err <= 1e-4).float().mean()))
+    assert shares[0] <= 1e-6 and shares[1] >= 0.90 and shares[2] >= 0.95, (
+        f"median {shares[0]}, within 1e-5 {shares[1]}, within 1e-4 "
+        f"{shares[2]}")
+
+
+@pytest.mark.parametrize("with_field", [False, True])
+def test_coarse_solve_picks_the_plain_versions_hypothesis(dev, monkeypatch,
+                                                          with_field):
+    """compute_coarse_Rt at the bin's widths (196 x 196 points, 6000
+    hypotheses, 300 kept) with injected uniforms, once through K8 and once
+    through the plain version: the same winning pose."""
+    from sam6d_tpu_torch.models.pem import matching
+    from sam6d_tpu_torch.ops import procrustes as pr
+    from sam6d_tpu_torch.ops.distance_field import build_min_dist_field
+
+    rng = np.random.RandomState(7)
+    B, N = 4, 196
+    t_ = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    atten = t_(3.0 * rng.randn(B, 1 + N, 1 + N))
+    pts1, pts2 = t_(0.3 * rng.randn(B, N, 3)), t_(0.3 * rng.randn(B, N, 3))
+    model = t_(0.3 * rng.randn(B, 1024, 3))
+    u = (t_(rng.rand(B, 18000, 1)), t_(rng.rand(B, 18000, 1)))
+    field = build_min_dist_field(model) if with_field else None
+
+    def solve():
+        with torch.no_grad():
+            return matching.compute_coarse_Rt(
+                atten, pts1, pts2, model, 6000, 300, dist_field=field,
+                uniforms=u, return_score=True)
+
+    launches = pr.KERNEL.launches
+    got = solve()
+    assert pr.KERNEL.launches == launches + 1
+    monkeypatch.setattr(matching, "weighted_procrustes",
+                        pr.weighted_procrustes_plain)
+    want = solve()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+def test_procrustes_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from sam6d_tpu_torch.ops import procrustes as pr
+
+    pts = torch.randn(5, 3, 3, device=dev)
+    w = torch.rand(5, 3, device=dev)
+    with pytest.raises(ValueError):  # float64 points
+        pr.procrustes_cuda(pts.double(), pts.double())
+    with pytest.raises(ValueError):  # bf16 weights
+        pr.procrustes_cuda(pts, pts, w.bfloat16())
+    with pytest.raises(ValueError):  # not contiguous
+        pr.procrustes_cuda(pts.transpose(1, 2), pts)
+    with pytest.raises(ValueError):  # (..., N, 3) of rank 4
+        pr.procrustes_cuda(pts[None], pts[None])
+    with pytest.raises(ValueError):  # weights of rank 1
+        pr.procrustes_cuda(pts, pts, w[0])
+    with pytest.raises(ValueError):  # four coordinates
+        pr.procrustes_cuda(torch.randn(5, 3, 4, device=dev),
+                           torch.randn(5, 3, 4, device=dev))
+    with pytest.raises(ValueError):  # points of two shapes
+        pr.procrustes_cuda(pts, pts[:4])
+
+
+def test_procrustes_refuses_a_gradient(dev):
+    """K8 makes no autograd node: on the card, under grad mode with an
+    input that requires a gradient, `weighted_procrustes` raises rather
+    than computing the plain version; under no_grad it serves."""
+    from sam6d_tpu_torch.ops import procrustes as pr
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    src = torch.randn(6, 3, 3, device=dev, generator=g)
+    ref = torch.randn(6, 3, 3, device=dev, generator=g)
+    w = torch.rand(6, 3, device=dev, generator=g)
+    launches = pr.KERNEL.launches
+    for req in range(3):
+        args = [src, ref, w]
+        args[req] = args[req].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="forward-only"):
+            pr.weighted_procrustes(*args)
+        with torch.no_grad():
+            R, t = pr.weighted_procrustes(*args)
+        assert not R.requires_grad and not t.requires_grad
+    assert pr.KERNEL.launches == launches + 3
+    Rp, tp = pr.weighted_procrustes_plain(src, ref, w)
+    torch.testing.assert_close(R, Rp, atol=1e-5, rtol=0)
+    torch.testing.assert_close(t, tp, atol=1e-5, rtol=0)

@@ -5,6 +5,9 @@ port's entry points take the kernels' plain PyTorch versions here
 because the tensors lie on the CPU.
 """
 
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +28,10 @@ from sam6d_tpu_torch.ops import procrustes as tpr
 from sam6d_tpu_torch.ops import sampling as tsm
 from sam6d_tpu_torch.ops import svd3 as tsvd
 from sam6d_tpu_torch.ops.fps import furthest_point_sample, sample_pts_feats
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "helpers"))
+from procrustes_cases import CASES as PROCRUSTES_CASES  # noqa: E402
+from procrustes_cases import procrustes_case  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -187,6 +194,63 @@ def test_weighted_procrustes_matches_and_is_proper():
     np.testing.assert_allclose(Rt, R, atol=1e-4)
     np.testing.assert_allclose(tt, t, atol=1e-4)
     np.testing.assert_allclose(np.linalg.det(Rt), 1.0, atol=1e-4)
+
+
+def test_weighted_procrustes_on_the_cpu_never_reaches_the_kernel(monkeypatch):
+    # CPU tensors take the plain version: a launch (or a build) of K8
+    # would raise here, and the result is still the JAX package's.
+    def refuse(*args, **kwargs):
+        raise AssertionError("CPU tensors reached the CUDA kernel")
+
+    monkeypatch.setattr(tpr, "launch", refuse)
+    monkeypatch.setattr(tpr, "procrustes_cuda", refuse)
+    launches = tpr.KERNEL.launches
+    rng = np.random.RandomState(6)
+    src = rng.randn(4, 2, 3, 3).astype(np.float32)
+    ref = src[..., ::-1, :] * 2.0 + rng.randn(4, 2, 3, 3).astype(np.float32)
+    w = rng.rand(4, 2, 3).astype(np.float32)
+    for weights in (None, w):
+        R, t = (np.asarray(x) for x in jpr.weighted_procrustes(
+            jnp.asarray(src), jnp.asarray(ref),
+            None if weights is None else jnp.asarray(weights), 0.2))
+        Rt, tt = (x.numpy() for x in tpr.weighted_procrustes(
+            _t(src), _t(ref), None if weights is None else _t(weights),
+            0.2))
+        np.testing.assert_allclose(Rt, R, atol=1e-4)
+        np.testing.assert_allclose(tt, t, atol=1e-4)
+    assert tpr.KERNEL.launches == launches
+
+
+@pytest.mark.parametrize("case", PROCRUSTES_CASES)
+def test_weighted_procrustes_matches_jax_at_the_solves_shapes(case):
+    # The plain version against the JAX package at the pose solves' shapes
+    # (the coarse (4, 6000) triplets, the fine 3 x 2048 weighted points)
+    # and on the cases the card tests hold K8 to it on: R and t within
+    # 1e-5 on every problem (the CPU sums as XLA does, so the triplets
+    # agree bit for bit).  A rank-1 H leaves R free about the line: there
+    # the line's image and t are held.
+    src, ref, w, thresh = procrustes_case(
+        case, np.random.RandomState(len(case)))
+    R, t = (np.asarray(x) for x in jpr.weighted_procrustes(
+        jnp.asarray(src), jnp.asarray(ref),
+        None if w is None else jnp.asarray(w), thresh))
+    Rt, tt = (x.numpy() for x in tpr.weighted_procrustes(
+        _t(src), _t(ref), None if w is None else _t(w), thresh))
+    np.testing.assert_allclose(tt, t, atol=1e-5, rtol=0)
+    if case == "fine_rank1":
+        line = src[..., 1, :] - src[..., 0, :]
+        line = (line / np.linalg.norm(line, axis=-1, keepdims=True))[..., None]
+        np.testing.assert_allclose(Rt @ line, R @ line, atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(Rt, R, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n,route", [(3, "thread"), (2048, "block")])
+def test_procrustes_route_of_the_coarse_and_fine_solves(n, route):
+    # The coarse stage's three-point hypotheses take one thread each, the
+    # fine stage's 2048 correspondences one block each.
+    assert tpr.procrustes_route(n) == route
+    assert route in tpr.ROUTES
 
 
 def test_weighted_sample_2d_matches_with_injected_uniforms():
