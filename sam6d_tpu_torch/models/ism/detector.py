@@ -27,7 +27,7 @@ from sam6d_tpu_torch.models.ism import scoring
 from sam6d_tpu_torch.ops.geometry import project_points
 from sam6d_tpu_torch.utils.bbox import crop_resize_pad, crop_resize_pad_masks
 from sam6d_tpu_torch.utils.detections import Detections
-from sam6d_tpu_torch.utils.timer import stage
+from sam6d_tpu_torch.utils.timer import count, stage
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -87,6 +87,8 @@ class ISMDetector:
         # threshold, and after the per-object NMS.
         self.last_counts: dict = {}
         self.requests = 0  # detect calls, numbering their spans
+        # (ref_data, its CLS and appearance descriptors on the device).
+        self._ref_dev = None
 
     def _tensor(self, x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), device=self.device, dtype=dtype)
@@ -141,8 +143,10 @@ class ISMDetector:
         proposals = self.segmentor.generate_masks(image, timer=timer)
         dets = Detections(masks=proposals["masks"], boxes=proposals["boxes"])
         counts = self.last_counts = {"proposals": len(dets)}
-        dets = dets.filter(dets.remove_very_small_detections(
-            cfg.min_box_size, cfg.min_mask_size))
+        keep = dets.remove_very_small_detections(cfg.min_box_size,
+                                                 cfg.min_mask_size)
+        if len(keep) < len(dets):  # else the same masks, uncopied
+            dets = dets.filter(keep)
         counts["sized"] = len(dets)
         if len(dets) == 0:
             return dets
@@ -151,6 +155,8 @@ class ISMDetector:
             Q = len(dets)
             counts["bucket"] = bucket(Q)
             pad = bucket(Q) - Q
+            count("ism.descriptor_rows", Q + pad)
+            count("ism.descriptor_pad_rows", pad)
             H, W = image.shape[:2]
             masks = self._tensor(dets.masks, torch.bool)
             boxes = self._tensor(dets.boxes)
@@ -166,20 +172,21 @@ class ISMDetector:
 
         with stage(timer, "scoring"):
             ref = self.ref_data
+            ref_cls, ref_appe = self._reference_on_device()
             sem, obj_idx, _, best_tpl, _ = (
                 t[:Q] for t in scoring.semantic_score(
-                    query_cls, self._tensor(ref.descriptors),
-                    cfg.aggregation_function))
+                    query_cls, ref_cls, cfg.aggregation_function))
             sel = torch.nonzero(sem > cfg.confidence_thresh)[:, 0]
             counts["confident"] = len(sel)
             if len(sel) == 0:
                 return dets.filter(sel.cpu().numpy())
             sel_np = sel.cpu().numpy()
-            dets = dets.filter(sel_np)
+            if len(sel_np) < Q:  # sel ascends: all of them is dets as is
+                dets = dets.filter(sel_np)
             sem, obj_idx, best_tpl = sem[sel], obj_idx[sel], best_tpl[sel]
             query_patch = query_patch[:Q][sel]
             obj_np, tpl_np = obj_idx.cpu().numpy(), best_tpl.cpu().numpy()
-            ref_patch = self._tensor(ref.appe_descriptors[obj_np, tpl_np])
+            ref_patch = ref_appe[obj_idx, best_tpl]
             Qs = len(dets)
             pad_s = bucket(Qs) - Qs
             appe = scoring.appearance_score(
@@ -189,7 +196,8 @@ class ISMDetector:
             if depth is not None and K is not None \
                     and ref.pointcloud is not None:
                 geo, vis = self._geometric_score(
-                    dets, obj_np, tpl_np, query_patch, ref_patch, depth, K)
+                    dets, masks[:Q][sel], obj_np, tpl_np, query_patch,
+                    ref_patch, depth, K)
             else:
                 geo = torch.zeros(Qs, device=self.device)
                 vis = torch.zeros(Qs, device=self.device)
@@ -215,11 +223,23 @@ class ISMDetector:
         crop_masks = crop_resize_pad_masks(masks, boxes, S) > 0.5
         return crops * crop_masks[..., None], crop_masks
 
-    def _geometric_score(self, dets, obj_idx, best_template, query_patch,
-                         ref_patch, depth, K):
+    def _reference_on_device(self):
+        """The onboarded CLS and appearance descriptors on the device,
+        uploaded once for each `ref_data` (the appearance descriptors are
+        O x T x 256 patches of 1024 floats, 352 MB for 8 objects, which a
+        frame would otherwise gather and upload on the host)."""
+        if self._ref_dev is None or self._ref_dev[0] is not self.ref_data:
+            ref = self.ref_data
+            self._ref_dev = (ref, self._tensor(ref.descriptors),
+                             self._tensor(ref.appe_descriptors))
+        return self._ref_dev[1:]
+
+    def _geometric_score(self, dets, masks, obj_idx, best_template,
+                         query_patch, ref_patch, depth, K):
         """Project the model cloud under the best template's rotation and
         the masked depth's mean translation; IoU with the proposal box
-        (reference detector.py:209-246, 310-322)."""
+        (reference detector.py:209-246, 310-322).  masks: the detections'
+        masks (Q, H, W) on the device."""
         vis = scoring.visible_ratio(query_patch, ref_patch,
                                     self.cfg.visible_thred)
         R = self._tensor(self.ref_data.poses[best_template, :3, :3])
@@ -235,7 +255,7 @@ class ISMDetector:
             indexing="ij")
         xmap = (xs - cx) * depth_t / fx
         ymap = (ys - cy) * depth_t / fy
-        m = self._tensor(dets.masks, torch.bool) & (depth_t > 0)[None]
+        m = masks & (depth_t > 0)[None]
         flat = m.reshape(len(dets), -1).float()
         counts = torch.clamp_min(flat.sum(1), 1.0)
         translate = torch.stack([flat @ xmap.reshape(-1),

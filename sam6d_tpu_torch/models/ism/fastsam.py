@@ -33,7 +33,7 @@ from sam6d_tpu_torch.ops.topk import top_k_indices
 from sam6d_tpu_torch.utils.bbox import resize_matrix
 from sam6d_tpu_torch.utils.detections import nms
 from sam6d_tpu_torch.utils.resize import pil_resize
-from sam6d_tpu_torch.utils.timer import stage
+from sam6d_tpu_torch.utils.timer import count, stage
 
 # Checkpoint module index -> module name (ultralytics yolov8-seg.yaml
 # order; indices 10/11/13/14/17/20 are Upsample/Concat with no
@@ -356,10 +356,12 @@ class FastSAM:
             boxes, conf = boxes.cpu().numpy(), conf.cpu().numpy()
         with stage(timer, "fastsam_nms"):
             keep = np.flatnonzero(conf > self.conf)
+            count("fastsam.candidates", len(keep))
             if len(keep) == 0:
                 return {"masks": np.zeros((0, H, W), bool),
                         "boxes": np.zeros((0, 4), np.float32)}
             keep = keep[nms(boxes[keep], conf[keep], self.iou)[:self.max_det]]
+            count("fastsam.kept", len(keep))
             boxes_orig = boxes[keep] / scale
         with stage(timer, "fastsam_masks"):
             clip_boxes = torch.from_numpy(boxes_orig).to(self.device)
@@ -371,4 +373,5 @@ class FastSAM:
         out_boxes = boxes_orig[nonempty].astype(np.float32)
         out_boxes[:, 0::2] = np.clip(out_boxes[:, 0::2], 0, W - 1)
         out_boxes[:, 1::2] = np.clip(out_boxes[:, 1::2], 0, H - 1)
-        return {"masks": masks[nonempty], "boxes": out_boxes}
+        return {"masks": masks if nonempty.all() else masks[nonempty],
+                "boxes": out_boxes}

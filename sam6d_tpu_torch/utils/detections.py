@@ -66,7 +66,9 @@ class Detections:
         H, W = self.masks.shape[1:]
         box_w = self.boxes[:, 2] - self.boxes[:, 0]
         box_h = self.boxes[:, 3] - self.boxes[:, 1]
-        mask_area = self.masks.reshape(len(self), -1).sum(-1)
+        # Row by row: numpy sums a bool array an element at a time.
+        mask_area = np.fromiter((np.count_nonzero(m) for m in self.masks),
+                                np.int64, len(self))
         keep = ((box_w > min_box_size * W) & (box_h > min_box_size * H)
                 & (mask_area > min_mask_size * H * W))
         return np.flatnonzero(keep)
