@@ -6,9 +6,12 @@ Segmentation_Model/model/detector.py :25-462 and run_inference_custom.py
 mask proposals, score each against the template bank with the semantic,
 appearance and geometric scores, and emit the final detections.
 
-Variable-count work (NMS, filtering) stays on the host in numpy; the
-descriptors and scores run on the detector's device over proposal
-batches padded to a power of two (minimum 8).  The JAX package caches
+Variable-count work (NMS, filtering) stays on the host in numpy, on
+indices into the segmentor's proposals; the descriptors and scores run
+on the detector's device over proposal batches padded to a power of two
+(minimum 8), from the segmentor's device masks where it returns them
+(FastSAM), else from its host masks uploaded (SAM's AMG).  The final
+detections index the host masks once.  The JAX package caches
 `ReferenceData` as a pickle of its own dataclass, which this package
 cannot load without importing it; the port caches it as `.npz`.
 """
@@ -26,7 +29,9 @@ from sam6d_tpu_torch.device import resolve_device
 from sam6d_tpu_torch.models.ism import scoring
 from sam6d_tpu_torch.ops.geometry import project_points
 from sam6d_tpu_torch.utils.bbox import crop_resize_pad, crop_resize_pad_masks
-from sam6d_tpu_torch.utils.detections import Detections
+from sam6d_tpu_torch.utils.detections import (Detections,
+                                               nms_per_object_id,
+                                               sized_indices)
 from sam6d_tpu_torch.utils.timer import count, stage
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -141,31 +146,37 @@ class ISMDetector:
     def _detect(self, image, depth, K, timer) -> Detections:
         cfg = self.cfg
         proposals = self.segmentor.generate_masks(image, timer=timer)
-        dets = Detections(masks=proposals["masks"], boxes=proposals["boxes"])
-        counts = self.last_counts = {"proposals": len(dets)}
-        keep = dets.remove_very_small_detections(cfg.min_box_size,
-                                                 cfg.min_mask_size)
-        if len(keep) < len(dets):  # else the same masks, uncopied
-            dets = dets.filter(keep)
-        counts["sized"] = len(dets)
-        if len(dets) == 0:
-            return dets
+        host_masks, boxes = proposals["masks"], proposals["boxes"]
+        counts = self.last_counts = {"proposals": len(host_masks)}
+        # Proposals are carried as indices into the segmentor's result;
+        # the returned detections index its host masks once, at the end.
+        dev_masks = proposals.get("device_masks")
+        if dev_masks is None:
+            idx = Detections(masks=host_masks, boxes=boxes) \
+                .remove_very_small_detections(cfg.min_box_size,
+                                              cfg.min_mask_size)
+        else:
+            idx = sized_indices(boxes, proposals["areas"],
+                                host_masks.shape[1:], cfg.min_box_size,
+                                cfg.min_mask_size)
+        Q = counts["sized"] = len(idx)
+        if Q == 0:
+            return Detections(masks=host_masks[idx], boxes=boxes[idx])
 
         with stage(timer, "descriptors"):
-            Q = len(dets)
             counts["bucket"] = bucket(Q)
             pad = bucket(Q) - Q
             count("ism.descriptor_rows", Q + pad)
             count("ism.descriptor_pad_rows", pad)
             H, W = image.shape[:2]
-            masks = self._tensor(dets.masks, torch.bool)
-            boxes = self._tensor(dets.boxes)
+            masks = self._proposal_masks(host_masks, dev_masks, idx)
+            q_boxes = self._tensor(boxes[idx])
             if pad:
                 masks = torch.cat([masks, masks.new_zeros(pad, H, W)])
-                boxes = torch.cat([boxes, boxes.new_tensor(
+                q_boxes = torch.cat([q_boxes, q_boxes.new_tensor(
                     [[0.0, 0.0, 2.0, 2.0]]).expand(pad, 4)])
             crops, crop_masks = self._masked_crops(
-                self._tensor(image) / 255.0, masks, boxes)
+                self._tensor(image) / 255.0, masks, q_boxes)
             query_cls, query_patch = self.descriptor.compute_cls_and_patch(
                 normalize_rgb(crops), crop_masks)
             query_cls, query_patch = query_cls.float(), query_patch.float()
@@ -178,16 +189,14 @@ class ISMDetector:
                     query_cls, ref_cls, cfg.aggregation_function))
             sel = torch.nonzero(sem > cfg.confidence_thresh)[:, 0]
             counts["confident"] = len(sel)
-            if len(sel) == 0:
-                return dets.filter(sel.cpu().numpy())
-            sel_np = sel.cpu().numpy()
-            if len(sel_np) < Q:  # sel ascends: all of them is dets as is
-                dets = dets.filter(sel_np)
+            idx = idx[sel.cpu().numpy()]
+            if len(idx) == 0:
+                return Detections(masks=host_masks[idx], boxes=boxes[idx])
             sem, obj_idx, best_tpl = sem[sel], obj_idx[sel], best_tpl[sel]
             query_patch = query_patch[:Q][sel]
             obj_np, tpl_np = obj_idx.cpu().numpy(), best_tpl.cpu().numpy()
             ref_patch = ref_appe[obj_idx, best_tpl]
-            Qs = len(dets)
+            Qs = len(idx)
             pad_s = bucket(Qs) - Qs
             appe = scoring.appearance_score(
                 torch.nn.functional.pad(query_patch, (0, 0, 0, 0, 0, pad_s)),
@@ -196,24 +205,41 @@ class ISMDetector:
             if depth is not None and K is not None \
                     and ref.pointcloud is not None:
                 geo, vis = self._geometric_score(
-                    dets, masks[:Q][sel], obj_np, tpl_np, query_patch,
+                    boxes[idx], masks[:Q][sel], obj_np, tpl_np, query_patch,
                     ref_patch, depth, K)
             else:
                 geo = torch.zeros(Qs, device=self.device)
                 vis = torch.zeros(Qs, device=self.device)
-            final = scoring.final_score(sem, appe, geo, vis)
-            dets.scores = final.cpu().numpy()
-            dets.object_ids = obj_np
-            dets.extras = {
+            scores = scoring.final_score(sem, appe, geo, vis).cpu().numpy()
+            kept = nms_per_object_id(boxes[idx], scores, obj_np,
+                                     cfg.nms_thresh)
+            idx = idx[kept]
+            counts["final"] = len(idx)
+            extras = {
                 "semantic_score": sem.cpu().numpy(),
                 "appe_score": appe.cpu().numpy(),
                 "geometric_score": geo.cpu().numpy(),
                 "visible_ratio": vis.cpu().numpy(),
                 "best_template": tpl_np,
             }
-            dets = dets.apply_nms_per_object_id(cfg.nms_thresh)
-            counts["final"] = len(dets)
-            return dets
+            return Detections(masks=host_masks[idx], boxes=boxes[idx],
+                              scores=scores[kept], object_ids=obj_np[kept],
+                              extras={k: v[kept] for k, v in extras.items()})
+
+    def _proposal_masks(self, host_masks, dev_masks, idx: np.ndarray):
+        """The masks of proposals idx on the device: indexed there where
+        the segmentor returned them there (FastSAM's "device_masks"), else
+        uploaded from its host masks (SAM's AMG, whose small-region edit
+        runs on the host)."""
+        every = len(idx) == len(host_masks)
+        if dev_masks is not None:
+            count("ism.mask_rows_on_device", len(idx))
+            masks = dev_masks.to(self.device)
+            return masks if every else masks[
+                torch.from_numpy(idx).to(self.device)]
+        count("ism.mask_rows_uploaded", len(idx))
+        return self._tensor(host_masks if every else host_masks[idx],
+                            torch.bool)
 
     def _masked_crops(self, img_f, masks, boxes):
         """Masked square crops of each proposal at descriptor size:
@@ -234,12 +260,13 @@ class ISMDetector:
                              self._tensor(ref.appe_descriptors))
         return self._ref_dev[1:]
 
-    def _geometric_score(self, dets, masks, obj_idx, best_template,
+    def _geometric_score(self, boxes, masks, obj_idx, best_template,
                          query_patch, ref_patch, depth, K):
         """Project the model cloud under the best template's rotation and
         the masked depth's mean translation; IoU with the proposal box
-        (reference detector.py:209-246, 310-322).  masks: the detections'
-        masks (Q, H, W) on the device."""
+        (reference detector.py:209-246, 310-322).  boxes: the
+        detections' (Q, 4) xyxy boxes on the host, masks: their masks
+        (Q, H, W) on the device."""
         vis = scoring.visible_ratio(query_patch, ref_patch,
                                     self.cfg.visible_thred)
         R = self._tensor(self.ref_data.poses[best_template, :3, :3])
@@ -256,7 +283,7 @@ class ISMDetector:
         xmap = (xs - cx) * depth_t / fx
         ymap = (ys - cy) * depth_t / fy
         m = masks & (depth_t > 0)[None]
-        flat = m.reshape(len(dets), -1).float()
+        flat = m.reshape(len(boxes), -1).float()
         counts = torch.clamp_min(flat.sum(1), 1.0)
         translate = torch.stack([flat @ xmap.reshape(-1),
                                  flat @ ymap.reshape(-1),
@@ -264,4 +291,4 @@ class ISMDetector:
         uv = project_points(posed + translate[:, None, :], self._tensor(K))
         uv = torch.stack([uv[..., 0].clamp(0, W - 1),
                           uv[..., 1].clamp(0, H - 1)], -1)
-        return scoring.geometric_score(uv, self._tensor(dets.boxes)), vis
+        return scoring.geometric_score(uv, self._tensor(boxes)), vis

@@ -340,9 +340,14 @@ class FastSAM:
     @torch.no_grad()
     def generate_masks(self, image: np.ndarray, timer=None) -> dict:
         """(H, W, 3) uint8 -> {"masks": (N, H, W) bool, "boxes": (N, 4)
-        xyxy float32} at the frame's size.  The frame is resized with
-        PIL's BILINEAR (`utils/resize.py`) so its longer side is the
-        input size, and zero-padded."""
+        xyxy float32} at the frame's size, with "device_masks", the same
+        masks as a bool tensor on the network's device, and "areas" (N,)
+        int64, each mask's pixel count.  The frame is resized with PIL's
+        BILINEAR (`utils/resize.py`) so its longer side is the input
+        size, and zero-padded.  The masks, their counts and the empty
+        masks' removal stay on the device; "masks" is one download of
+        them into pinned memory from the caching host allocator (a view
+        of "device_masks" on the CPU)."""
         H, W = image.shape[:2]
         S = self.img_size
         scale = S / max(H, W)
@@ -359,7 +364,10 @@ class FastSAM:
             count("fastsam.candidates", len(keep))
             if len(keep) == 0:
                 return {"masks": np.zeros((0, H, W), bool),
-                        "boxes": np.zeros((0, 4), np.float32)}
+                        "boxes": np.zeros((0, 4), np.float32),
+                        "device_masks": torch.zeros(
+                            (0, H, W), dtype=torch.bool, device=self.device),
+                        "areas": np.zeros(0, np.int64)}
             keep = keep[nms(boxes[keep], conf[keep], self.iou)[:self.max_det]]
             count("fastsam.kept", len(keep))
             boxes_orig = boxes[keep] / scale
@@ -368,10 +376,21 @@ class FastSAM:
             probs = mask_probabilities(
                 mcoef[torch.from_numpy(keep).to(self.device)], proto,
                 eh, ew, H, W, S)
-            masks = ((probs > 0.5) & box_clip(clip_boxes, H, W)).cpu().numpy()
-        nonempty = masks.reshape(len(masks), -1).any(1)
+            masks = (probs > 0.5) & box_clip(clip_boxes, H, W)
+            areas = masks.flatten(1).sum(1).cpu().numpy()
+            nonempty = areas > 0
+            if not nonempty.all():
+                idx = np.flatnonzero(nonempty)
+                masks = masks[torch.from_numpy(idx).to(self.device)]
+                areas = areas[idx]
+            # One download, into pinned memory from the caching host
+            # allocator (reused once a frame's result is freed): 200
+            # masks at 480 x 640 take 1.7 ms so on an H100, 29-40 ms
+            # into pageable memory.
+            host = masks if masks.device.type == "cpu" else torch.empty(
+                masks.shape, dtype=torch.bool, pin_memory=True).copy_(masks)
         out_boxes = boxes_orig[nonempty].astype(np.float32)
         out_boxes[:, 0::2] = np.clip(out_boxes[:, 0::2], 0, W - 1)
         out_boxes[:, 1::2] = np.clip(out_boxes[:, 1::2], 0, H - 1)
-        return {"masks": masks if nonempty.all() else masks[nonempty],
-                "boxes": out_boxes}
+        return {"masks": host.numpy(), "boxes": out_boxes,
+                "device_masks": masks, "areas": areas}

@@ -33,6 +33,34 @@ def nms(boxes: np.ndarray, scores: np.ndarray,
     return np.asarray(keep, np.int64)
 
 
+def sized_indices(boxes: np.ndarray, mask_area: np.ndarray, hw,
+                  min_box_size: float = 0.05,
+                  min_mask_size: float = 3e-4) -> np.ndarray:
+    """Indices of the xyxy boxes and mask areas (pixels) above the size
+    thresholds, relative to the (H, W) image's sides and area (reference
+    model/utils.py:96-105)."""
+    H, W = hw
+    box_w = boxes[:, 2] - boxes[:, 0]
+    box_h = boxes[:, 3] - boxes[:, 1]
+    keep = ((box_w > min_box_size * W) & (box_h > min_box_size * H)
+            & (mask_area > min_mask_size * H * W))
+    return np.flatnonzero(keep)
+
+
+def nms_per_object_id(boxes: np.ndarray, scores: np.ndarray,
+                      object_ids: np.ndarray,
+                      nms_thresh: float = 0.25) -> np.ndarray:
+    """Ascending indices kept by a greedy NMS within each object id."""
+    keep_all = []
+    for obj in np.unique(object_ids):
+        sel = np.flatnonzero(object_ids == obj)
+        kept = nms(boxes[sel], scores[sel], nms_thresh)
+        keep_all.append(sel[kept])
+    keep_all = (np.concatenate(keep_all) if keep_all
+                else np.zeros(0, np.int64))
+    return np.sort(keep_all)
+
+
 @dataclass
 class Detections:
     """Per-frame detections (masks at full image resolution)."""
@@ -63,27 +91,17 @@ class Detections:
         the image's sides and area (reference model/utils.py:96-105)."""
         if len(self) == 0:
             return np.zeros(0, np.int64)
-        H, W = self.masks.shape[1:]
-        box_w = self.boxes[:, 2] - self.boxes[:, 0]
-        box_h = self.boxes[:, 3] - self.boxes[:, 1]
         # Row by row: numpy sums a bool array an element at a time.
         mask_area = np.fromiter((np.count_nonzero(m) for m in self.masks),
                                 np.int64, len(self))
-        keep = ((box_w > min_box_size * W) & (box_h > min_box_size * H)
-                & (mask_area > min_mask_size * H * W))
-        return np.flatnonzero(keep)
+        return sized_indices(self.boxes, mask_area, self.masks.shape[1:],
+                             min_box_size, min_mask_size)
 
     def apply_nms_per_object_id(self, nms_thresh: float = 0.25
                                 ) -> "Detections":
         assert self.object_ids is not None and self.scores is not None
-        keep_all = []
-        for obj in np.unique(self.object_ids):
-            sel = np.flatnonzero(self.object_ids == obj)
-            kept = nms(self.boxes[sel], self.scores[sel], nms_thresh)
-            keep_all.append(sel[kept])
-        keep_all = (np.concatenate(keep_all) if keep_all
-                    else np.zeros(0, np.int64))
-        return self.filter(np.sort(keep_all))
+        return self.filter(nms_per_object_id(self.boxes, self.scores,
+                                             self.object_ids, nms_thresh))
 
     def to_bop23(self, scene_id: int, image_id: int, runtime: float = -1.0,
                  object_id_offset: int = 1) -> list[dict]:

@@ -154,6 +154,38 @@ def test_generate_masks_empty_when_nothing_passes_conf(nets):
         assert out["boxes"].shape == (0, 4)
 
 
+def test_generate_masks_device_masks_and_areas(nets, monkeypatch):
+    """"device_masks" holds "masks" and "areas" each mask's pixel count,
+    also where a proposal composes empty: it leaves all three, and the
+    boxes, together."""
+    image = (np.random.RandomState(7).rand(96, 120, 3) * 255).astype(np.uint8)
+    _, tfs = pipelines(nets, 128, conf=0.3, max_det=24)
+    plain = tfs.generate_masks(image)
+    compose = fastsam.mask_probabilities
+
+    def emptied(*a):
+        probs = compose(*a)
+        probs[2] = 0.0
+        return probs
+
+    monkeypatch.setattr(fastsam, "mask_probabilities", emptied)
+    got = tfs.generate_masks(image)
+    monkeypatch.setattr(tfs, "conf", 1.1)
+    none = tfs.generate_masks(image)
+    for out in (plain, got, none):
+        dm = out["device_masks"]
+        assert dm.dtype == torch.bool and dm.device == tfs.device
+        np.testing.assert_array_equal(dm.numpy(), out["masks"])
+        assert out["areas"].dtype == np.int64
+        np.testing.assert_array_equal(
+            out["areas"], [np.count_nonzero(m) for m in out["masks"]])
+    n = len(plain["masks"])
+    assert n > 3 and len(none["masks"]) == 0
+    others = np.arange(n) != 2
+    np.testing.assert_array_equal(got["masks"], plain["masks"][others])
+    np.testing.assert_array_equal(got["boxes"], plain["boxes"][others])
+
+
 @pytest.mark.parametrize("n", [64, 1024, 3072, 8400])
 def test_top_k_orders_ties_as_jax(n):
     # Integer-valued float32 scores: many exact ties.  torch.topk orders
