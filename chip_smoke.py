@@ -3023,6 +3023,7 @@ def check_distributed(dev, tmp: Path, request):
         sync_hosts,
     )
     from sam6d_tpu_torch.parallel.mesh import make_mesh
+    from sam6d_tpu_torch.parallel.pem_serving import MeshPEMRunner
     from sam6d_tpu_torch.pipeline.bop_eval import write_shard_and_merge
     from sam6d_tpu_torch.pipeline.pem_runner import PEMRunner
     from sam6d_tpu_torch.train import train_cli
@@ -3046,8 +3047,8 @@ def check_distributed(dev, tmp: Path, request):
                    tem_choose=rng.randint(0, S * S, (T, Np)).astype(np.int64))
         t0 = time.perf_counter()
         plain = PEMRunner(cfg, device=dev, dtype=torch.bfloat16, seed=0)
-        meshed = PEMRunner(cfg, state_dict=plain.model.state_dict(),
-                           device=dev, dtype=torch.bfloat16, mesh=mesh)
+        meshed = MeshPEMRunner(cfg, mesh, state_dict=plain.model.state_dict(),
+                               device=dev, dtype=torch.bfloat16)
         plain.onboard_arrays(**tem)
         meshed.tem_pts, meshed.tem_feat = plain.tem_pts, plain.tem_feat
         meshed.make_template_bank(plain.tem_pts, plain.tem_feat)

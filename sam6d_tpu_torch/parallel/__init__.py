@@ -10,8 +10,8 @@ the process group (`mesh.py`), one rank a card (NCCL) or a CPU process
     averaged over it, BatchNorm moments summed over it (`sharding.py`);
   * `tp` axis: Megatron pairs over the ViT and transformer Dense layers
     (`sharding.py`, `collectives.py`);
-  * `hyp` axis: the coarse solve's hypothesis budget
-    (`hyp_parallel.py`).
+  * `hyp` axis: the coarse solve's hypothesis budget (`hyp_parallel.py`);
+    PEM serving over `dp` and `hyp` is `pem_serving.MeshPEMRunner`.
 """
 
 from sam6d_tpu_torch.parallel.mesh import make_mesh  # noqa: F401

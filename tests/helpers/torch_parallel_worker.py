@@ -59,13 +59,12 @@ def hyp(inp):
 
 
 def runner(inp):
-    """PEMRunner on a mesh: the frame's poses, on every rank."""
-    from sam6d_tpu_torch.pipeline.pem_runner import PEMRunner
+    """MeshPEMRunner: the frame's poses, on every rank."""
+    from sam6d_tpu_torch.parallel.pem_serving import MeshPEMRunner
 
     mesh = make_mesh(inp["shape"], inp["axes"], "cpu")
-    run = PEMRunner(inp["cfg"], state_dict={k: _t(v) for k, v in
-                                            inp["state"].items()},
-                    device="cpu", mesh=mesh)
+    run = MeshPEMRunner(inp["cfg"], mesh, state_dict={
+        k: _t(v) for k, v in inp["state"].items()}, device="cpu")
     run.make_template_bank(_t(inp["tem_pts"]), _t(inp["tem_feat"]))
     u = inp["uniforms"]
     if "hyp" in inp["axes"]:

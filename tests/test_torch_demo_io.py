@@ -436,3 +436,17 @@ def test_port_imports_no_jax_flax_pil_or_the_jax_package():
             found += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
                       for n in names if n.split(".")[0] in banned]
     assert len(files) > 40 and not found, found
+
+
+def test_pem_runner_imports_nothing_of_the_parallel_package():
+    # One-card serving stays free of the mesh: `MeshPEMRunner`
+    # (`parallel/pem_serving.py`) adds it on top.
+    path = ROOT / "sam6d_tpu_torch" / "pipeline" / "pem_runner.py"
+    found = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            found += [f"{node.module}.{a.name}" for a in node.names]
+    assert found and not [n for n in found
+                          if n.startswith("sam6d_tpu_torch.parallel")], found

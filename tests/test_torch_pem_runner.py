@@ -6,7 +6,7 @@ test_torch_pem.py; max_bucket=2 is held in
 test_torch_pem_runner_chunks.py (one file per batch shape, so that the
 eager JAX runs go to different workers).
 
-Also the runner on a mesh against the JAX runner on the same mesh shape,
+Also `MeshPEMRunner` against the JAX runner on the same mesh shape,
 the same 3 instances (here, where the eager JAX ops of that bucket are
 already compiled).  The port runs in gloo process groups (`tests/
 helpers/torch_parallel_worker.py`, as test_torch_parallel.py), started
@@ -135,21 +135,29 @@ def test_runner_on_dp2_x_hyp2_equals_jax(tiny, tmp_path):
     check(ranks()["runner"], want, tiny)
 
 
-def test_runner_bucket_rule_follows_the_mesh(tiny):
-    """The JAX runner's bucket on a dp mesh: at least the dp size, a
-    power of two times it, capped at max(max_bucket, dp)."""
+@pytest.mark.parametrize("dp", [pytest.param(4, id="mesh_dp4"),
+                                pytest.param(None, id="one_card")])
+def test_runner_bucket_rule_follows_the_mesh(tiny, dp):
+    """The JAX runner's bucket: on a dp mesh (`MeshPEMRunner`) at least
+    the dp size, a power of two times it, capped at max(max_bucket, dp);
+    without a mesh (`PEMRunner`) the same with dp 1."""
+    from sam6d_tpu_torch.parallel.pem_serving import MeshPEMRunner
     from sam6d_tpu_torch.pipeline.pem_runner import PEMRunner
 
-    class Mesh:  # the two methods PEMRunner reads of a DeviceMesh
+    class Mesh:  # what MeshPEMRunner reads of a DeviceMesh to size buckets
         mesh_dim_names = ("dp", "hyp")
 
         def size(self, i):
             return (4, 2)[i]
 
-    run = PEMRunner(dataclasses.replace(tiny["tcfg"]), device="cpu",
-                    mesh=Mesh())
-    jrun = jax_runner(tiny, (4, 2), ("dp", "hyp"))
-    assert jrun._min_bucket == run._min_bucket == 4
+    cfg = dataclasses.replace(tiny["tcfg"])
+    if dp is None:
+        run, jrun = PEMRunner(cfg, device="cpu"), JRunner(tiny["jcfg"])
+        assert jrun._min_bucket == 1
+    else:
+        run = MeshPEMRunner(cfg, Mesh(), device="cpu")
+        jrun = jax_runner(tiny, (4, 2), ("dp", "hyp"))
+        assert jrun._min_bucket == run.dp == dp
     for max_bucket in (None, 1, 8):
         run.max_bucket = jrun.max_bucket = max_bucket
         # The bucket loop of sam6d_tpu/pipeline/pem_runner.py:infer.
