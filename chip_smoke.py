@@ -20,7 +20,8 @@ process per source, all at once), then:
    and one-target indices, its bits held to the CPU's; K8 at the two
    pose solves' shapes through the route the wrapper picks and through
    the other where it can, with the share of the coarse problems whose
-   R and t equal the plain version's bit for bit); plus the
+   R and t equal the plain version's bit for bit; K9 at the AMG decode's
+   two call forms and at tiny SAM's 576 rows in float32); plus the
    tiny-config PEM template bank, a tiny-config ISM frame (float32), a
    tiny FastSAM (the "n" scale at 160 px: head outputs and
    generate_masks) and bfloat16 SAM-encoder and DINOv2 blocks at the full
@@ -258,11 +259,12 @@ def all_kernels():
         geo_embed,
         procrustes,
         scatter_rows,
+        two_way,
     )
 
     return [fps.KERNEL, geo_embed.KERNEL, flash_rpe.KERNEL_RPE,
             flash_rpe.KERNEL_PLAIN, decode_tail.KERNEL, geo_embed.KERNEL_BWD,
-            scatter_rows.KERNEL, procrustes.KERNEL]
+            scatter_rows.KERNEL, procrustes.KERNEL, two_way.KERNEL]
 
 
 def phase_environment():
@@ -1348,6 +1350,70 @@ def check_procrustes(dev):
     return rows
 
 
+def check_two_way(dev):
+    """K9 at the AMG decode's two call forms (64 grid prompts over the
+    4096 key rows of SAM ViT-H: the first block's batch-1 float32 image
+    side, the second block's bf16 keys of batch 64; bf16 compute) and at
+    tiny SAM's 576 rows in float32.  Required: every output within the
+    card tests' tolerance of the plain version on the card (relative
+    Frobenius error 4e-3 in bf16, 2e-6 in float32) and the bare launch's
+    result equal to the wrapper's.  Times: the wrapper (`ms`), the kernel
+    alone (`kernel_ms`: bare launches on prepared operands, in bursts),
+    the plain version.  Bound: the inputs read and the outputs written
+    once; the products (four 256 x 128 a row, one of them once a row in
+    the batch-1 form) on the tensor cores, or at the CUDA cores' float32
+    peak."""
+    import torch
+
+    from sam6d_tpu_torch.ops import two_way as tw
+
+    cases = load_helper("two_way_cases")
+    rows = []
+    for B, N, T, Bk, dtype in ((64, 4096, 7, 1, torch.bfloat16),
+                               (64, 4096, 7, 64, torch.bfloat16),
+                               (64, 576, 7, 1, torch.float32)):
+        with torch.no_grad():
+            _, _, keys, key_pe, k_tok, v_tok, _, _, w = cases.op_case(
+                B, N, T, Bk, dtype, device=dev)
+            pe = key_pe.reshape(N, 256)
+            wt = tw.kernel_weights(w, dtype, keys.device)
+            kern = lambda: tw.two_way_keys_cuda(keys, pe, k_tok, v_tok, w,
+                                                dtype)
+            plain = lambda: tw.two_way_keys_plain(keys, key_pe, k_tok,
+                                                  v_tok, w, dtype)
+            got, want = kern(), plain()
+            outs = tw.prepare(keys, k_tok)
+            bare = lambda: tw.launch(keys, pe, k_tok, v_tok, wt, *outs)
+            bare()
+            torch.cuda.synchronize()
+            errs = [float((g.float() - x.float()).norm() / x.float().norm())
+                    for g, x in zip(got, want)]
+            rel = 4e-3 if dtype == torch.bfloat16 else 2e-6
+            require(max(errs) < rel, f"two_way {B}x{N} Bk={Bk}: {errs}")
+            require(all(torch.equal(a, b) for a, b in zip(outs, got)),
+                    f"two_way {B}x{N} Bk={Bk}: the bare launch differs")
+            del got, want
+            t = time_in_turns({"kernel": kern, "plain": plain}, 10)
+            tb = time_in_turns({"kernel": bare}, 10, burst=10)
+        es = 2 if dtype == torch.bfloat16 else 4
+        rows_ = B * N
+        nbytes = (Bk * N * 256 * keys.element_size() + N * 256 * 4
+                  + 2 * B * T * 128 * es + 4 * 128 * 256 * es
+                  + rows_ * (256 + 2 * 128) * es)
+        macs = rows_ * 3 * 256 * 128 + (N if Bk == 1 else rows_) * 256 * 128
+        if dtype == torch.bfloat16:
+            b_ms, b_by = bound_tc(nbytes, 2 * macs)
+        else:
+            b_ms, b_by = bound(nbytes, 2 * macs, "float32")
+        rows.append(dict(
+            shape=f"B={B}, N={N}, T={T}, keys batch {Bk} {keys.dtype}, "
+                  f"{dtype}", rel_err=errs, ms=t["kernel"],
+            kernel_ms=tb["kernel"], plain_ms=t["plain"], bound_ms=b_ms,
+            bound_by=b_by))
+        log(f"two_way {rows[-1]}")
+    return rows
+
+
 def grads_card_vs_cpu(dev, module, loss_fn, what: str, tol: float = 1e-3,
                       atol: float = 1e-6, kernels=()):
     """One loss and backward of `module` (on the CPU, weights kept) on the
@@ -1533,7 +1599,7 @@ def phase_ism(dev):
     from sam6d_tpu_torch.models.ism.sam.model import SAM
     from sam6d_tpu_torch.models.layers import cast_dense_weights
     from sam6d_tpu_torch.params import init_random_
-    from sam6d_tpu_torch.utils.timer import StageTimer
+    from sam6d_tpu_torch.utils.timer import StageTimer, recording
 
     cfg = default_ism_config()
     dtype = torch.bfloat16
@@ -1576,7 +1642,7 @@ def phase_ism(dev):
     pc = (rng.randn(1, cfg.pointcloud_sample_num, 3) * 0.04).astype(
         np.float32)
     frames = [synthetic_scene(rng) for _ in range(3)]
-    kernels = all_kernels()[2:5]
+    kernels = all_kernels()[2:5] + all_kernels()[-1:]  # K4, K5, K6, K9
     torch.cuda.synchronize()
 
     for k in kernels:
@@ -1596,13 +1662,22 @@ def phase_ism(dev):
         timer = StageTimer(dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        dets = d.detect(image, depth, K, timer=timer)
+        with recording() as rec:
+            dets = d.detect(image, depth, K, timer=timer)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        rows = {name: sum(n for c, n, _, _ in rec.counts if c == name)
+                for name in ("sam.key_rows_fused", "sam.key_rows_plain")}
+        # K9 serves both blocks of every grid prompt's decode: 64 x 64 rows.
+        P = cfg.segmentor.points_per_side ** 2
+        require(rows == {"sam.key_rows_fused": 2 * P * 64 * 64,
+                         "sam.key_rows_plain": 0},
+                f"ISM frame {i} key rows {rows}")
         results.append(dict(
             thresholds=("default", "opened", "opened, NMS off")[i],
             frame_ms=ms,
             stages_ms=timer.report(), counts=dict(d.last_counts),
+            key_rows=rows,
             launches={k.name: k.launches - before[k.name] for k in kernels},
             detections=len(dets)))
         n = len(dets)
@@ -1632,6 +1707,9 @@ def phase_ism(dev):
                 and lc["flash_attention"] % 24 == 0
                 and (i == 0 or lc["flash_attention"] > 0),
                 f"ISM frame {i} launched K4 / K5 {lc}")
+        # K9: two calls a batch of 64 of the 32 x 32 grid's prompts.
+        require(lc["two_way_keys"] == 32,
+                f"ISM frame {i} launched K9 {lc['two_way_keys']} times")
     require(results[1]["detections"] > 0 and results[2]["detections"] > 0,
             "no detection with opened thresholds")
     log(f"ISM onboarding (1 object x {T} views): {onboard_ms:.1f} ms, "
@@ -3627,6 +3705,7 @@ def main():
         geo_embed,
         procrustes,
         scatter_rows,
+        two_way,
     )
 
     dev = torch.device("cuda", 0)
@@ -3641,6 +3720,7 @@ def main():
     bwd_rows = check_geo_embed_bwd(dev)
     scatter_rows_ = check_scatter_rows(dev)
     procrustes_rows = check_procrustes(dev)
+    two_way_rows = check_two_way(dev)
     check_tiny_bank(dev)
     check_tiny_ism(dev)
     tiny_fs = check_tiny_fastsam(dev)
@@ -3765,6 +3845,16 @@ def main():
              "shape")},
          "library": "none: no PyTorch call solves batched weighted "
                     "Procrustes", "by_shape": procrustes_rows},
+        # K9 replaces no TPU kernel; its row is the second block's call.
+        {"name": two_way.KERNEL.name, "route": "cuda",
+         "source": str(two_way.KERNEL.source.relative_to(ROOT)),
+         "replaces": two_way.KERNEL.replaces,
+         "launches": ism["launches"][two_way.KERNEL.name],
+         **{k: two_way_rows[1][k] for k in (
+             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+             "shape")},
+         "library": "none: no PyTorch call computes the chain",
+         "by_shape": two_way_rows},
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -6,7 +6,10 @@ TwoWayTransformer :16).  LayerNorms use flax's eps 1e-6.  The upscaling
 ConvTransposes (kernel = stride = 2) are pointwise matmuls C -> 2*2*O
 with torch ConvTranspose2d semantics (no spatial flip), and the 2 x 2
 blocks stay flattened in the channel axis, nesting (dy, dx, feature),
-until the single pixel shuffle at the end of `tail`.
+until the single pixel shuffle at the end of `tail`.  Each two-way block
+ends in `ops/two_way.two_way_keys` (K9 on the card): its image-to-token
+attention, `norm4` and the next token-to-image attention's key and value
+projections, which that attention then takes as they are.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from torch import nn
 
 from sam6d_tpu_torch.models.ism.sam.encoder import LayerNorm2d
 from sam6d_tpu_torch.models.layers import Dense, LayerNorm
+from sam6d_tpu_torch.ops.two_way import TwoWayWeights, two_way_keys
 
 
 class MLP(nn.Module):
@@ -74,22 +78,35 @@ class CrossAttention(nn.Module):
         self.num_heads = num_heads
         self.internal = internal
 
+    @staticmethod
+    def split_heads(t, num_heads: int = 8):
+        """(..., n, H * hd) -> a (..., H, n, hd) view."""
+        return t.reshape(*t.shape[:-1], num_heads, -1).transpose(-2, -3)
+
+    @staticmethod
+    def attention(qp, kh, vh, q_dtype):
+        """Multi-head attention of a projected query qp (..., n, H * hd) on
+        projected keys and values split into heads, kh and vh (..., H, m,
+        hd) -> (..., n, H * hd), before the output projection.  The JAX
+        module divides by sqrt(hd) cast to the dtype of the input q
+        (`q_dtype`), which promotes bf16 logits when q is float32."""
+        H, hd = kh.shape[-3], kh.shape[-1]
+        attn = CrossAttention.split_heads(qp, H) @ kh.transpose(-1, -2)
+        attn = attn.to(torch.promote_types(attn.dtype, q_dtype))
+        attn = torch.softmax(attn / math.sqrt(hd), dim=-1)
+        out = (attn @ vh.to(attn.dtype)).transpose(-2, -3)
+        return out.reshape(*out.shape[:-2], H * hd)
+
     def forward(self, q, k, v):
         H = self.num_heads
-        hd = self.internal // H
+        return self.attend(q, self.split_heads(self.k_proj(k), H),
+                           self.split_heads(self.v_proj(v), H))
 
-        def heads(t):  # (B, n, H * hd) -> (B, H, n, hd)
-            return t.reshape(*t.shape[:-1], H, hd).transpose(-2, -3)
-
-        qp, kp, vp = heads(self.q_proj(q)), heads(self.k_proj(k)), \
-            heads(self.v_proj(v))
-        # The JAX module divides by sqrt(hd) cast to the dtype of the
-        # input q, which promotes bf16 logits when q is float32.
-        attn = qp @ kp.transpose(-1, -2)
-        attn = attn.to(torch.promote_types(attn.dtype, q.dtype))
-        attn = torch.softmax(attn / math.sqrt(hd), dim=-1)
-        out = (attn @ vp.to(attn.dtype)).transpose(-2, -3)
-        return self.out_proj(out.reshape(*out.shape[:-2], self.internal))
+    def attend(self, q, kh, vh):
+        """The attention of q on keys and values already projected by
+        this module's k_proj and v_proj and split into heads (..., H, m,
+        hd)."""
+        return self.out_proj(self.attention(self.q_proj(q), kh, vh, q.dtype))
 
 
 class TwoWayAttentionBlock(nn.Module):
@@ -110,22 +127,41 @@ class TwoWayAttentionBlock(nn.Module):
         self.norm4 = LayerNorm(embed_dim, dtype)
         self.skip_first_layer_pe = skip_first_layer_pe
 
-    def forward(self, queries, keys, query_pe, key_pe):
+    def forward(self, queries, keys, query_pe, key_pe, kv, nxt):
+        """keys (Bk, N, C); kv: this block's token-to-image keys and
+        values, projected and split into heads by the previous block's
+        `two_way_keys` (None in the first block); nxt: the next
+        token-to-image attention.  -> (queries, keys (B, N, C), nxt's
+        keys and values)."""
         if self.skip_first_layer_pe:
             queries = self.self_attn(queries, queries, queries)
         else:
             q = queries + query_pe
             queries = queries + self.self_attn(q, q, queries)
         queries = self.norm1(queries)
-        attn_out = self.cross_attn_token_to_image(
-            queries + query_pe, keys + key_pe, keys)
+        t2i = self.cross_attn_token_to_image
+        if kv is None:
+            attn_out = t2i(queries + query_pe, keys + key_pe, keys)
+        else:
+            attn_out = t2i.attend(queries + query_pe, *kv)
         queries = self.norm2(queries + attn_out)
         mlp_out = self.mlp_lin2(F.relu(self.mlp_lin1(queries)))
         queries = self.norm3(queries + mlp_out)
-        attn_out = self.cross_attn_image_to_token(
-            keys + key_pe, queries + query_pe, queries)
-        keys = self.norm4(keys + attn_out)
-        return queries, keys
+        i2t = self.cross_attn_image_to_token
+        keys, kp, vp = two_way_keys(
+            keys, key_pe, i2t.k_proj(queries + query_pe), i2t.v_proj(queries),
+            self.key_weights(nxt), i2t.q_proj.dtype, self.norm4.eps)
+        return queries, keys, (kp, vp)
+
+    def key_weights(self, nxt: CrossAttention) -> TwoWayWeights:
+        """The weights of `two_way_keys`: the image-to-token attention's
+        q and out projections, norm4, nxt's k and v projections."""
+        i2t = self.cross_attn_image_to_token
+        return TwoWayWeights(
+            i2t.q_proj.weight, i2t.q_proj.bias, i2t.out_proj.weight,
+            i2t.out_proj.bias, self.norm4.weight, self.norm4.bias,
+            nxt.k_proj.weight, nxt.k_proj.bias, nxt.v_proj.weight,
+            nxt.v_proj.bias)
 
 
 class TwoWayTransformer(nn.Module):
@@ -147,12 +183,14 @@ class TwoWayTransformer(nn.Module):
         Bk, h, w, C = image_embedding.shape
         keys = image_embedding.reshape(Bk, h * w, C)
         key_pe = image_pe.reshape(1, h * w, C)
-        queries = point_embedding
+        queries, kv = point_embedding, None
         for i in range(self.depth):
-            queries, keys = getattr(self, f"layers_{i}")(
-                queries, keys, point_embedding, key_pe)
-        attn_out = self.final_attn_token_to_image(
-            queries + point_embedding, keys + key_pe, keys)
+            nxt = (getattr(self, f"layers_{i + 1}").cross_attn_token_to_image
+                   if i + 1 < self.depth else self.final_attn_token_to_image)
+            queries, keys, kv = getattr(self, f"layers_{i}")(
+                queries, keys, point_embedding, key_pe, kv, nxt)
+        attn_out = self.final_attn_token_to_image.attend(
+            queries + point_embedding, *kv)
         return self.norm_final_attn(queries + attn_out), keys
 
 

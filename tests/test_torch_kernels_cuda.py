@@ -712,7 +712,8 @@ def test_flash_kernels_refuse_a_gradient(dev):
 
 
 def test_tiny_models_train_on_the_card_as_on_the_cpu(dev):
-    """The tiny SAM (flash=False) and descriptor (use_flash=False) on a
+    """The tiny SAM (flash=False; its decoder's K9 launches, with the plain
+    version's backward) and descriptor (use_flash=False) on a
     training batch of their tools (phase 11c's), held to the CPU by
     chip_smoke.grads_card_vs_cpu: the loss 1e-4; every parameter that the
     CPU's loss reaches has a finite gradient on the card, within 1e-3
@@ -723,6 +724,7 @@ def test_tiny_models_train_on_the_card_as_on_the_cpu(dev):
     from chip_smoke import grads_card_vs_cpu
     from sam6d_tpu_torch.models.ism.detector import normalize_rgb
     from sam6d_tpu_torch.provider.training_dataset import make_procedural_mesh
+    from sam6d_tpu_torch.ops import two_way
     from sam6d_tpu_torch.tools import train_ism_descriptor as t_desc
     from sam6d_tpu_torch.tools import train_tiny_sam as t_sam
 
@@ -736,7 +738,7 @@ def test_tiny_models_train_on_the_card_as_on_the_cpu(dev):
     grads_card_vs_cpu(
         dev, t_sam.make_tiny_sam(device="cpu", flash=False),
         lambda m, d: t_sam.sam_loss(m, imgs.to(d), pts.to(d), gts.to(d))[0],
-        "tiny SAM (flash=False)")
+        "tiny SAM (flash=False)", kernels=(two_way.KERNEL,))
     grads_card_vs_cpu(
         dev, t_desc.make_descriptor(t_desc.tiny_descriptor_config(), "cpu"),
         lambda m, d: t_desc.nt_xent(m.vit(x.to(d))[0], 0.1)[0],
@@ -925,3 +927,179 @@ def test_procrustes_refuses_a_gradient(dev):
     Rp, tp = pr.weighted_procrustes_plain(src, ref, w)
     torch.testing.assert_close(R, Rp, atol=1e-5, rtol=0)
     torch.testing.assert_close(t, tp, atol=1e-5, rtol=0)
+
+
+# K9 at the cell's two call forms (64 grid prompts over 4096 rows: the
+# first block's batch-1 float32 image side, the second's bf16 keys of
+# batch 64), at tiny SAM's 576 rows, at T = 9 (more than one n-tile of
+# tokens), at T = 33 and 70 (three and five chunks of 16 tokens under the
+# running softmax, 70 past the 64 a build once took) on ragged tiles, and
+# at one prompt.
+TWO_WAY_CASES = [(64, 4096, 7, 1), (64, 4096, 7, 64), (64, 576, 7, 1),
+                 (5, 576, 9, 5), (3, 4096, 9, 1), (2, 100, 33, 2),
+                 (2, 100, 70, 2), (3, 576, 70, 1), (1, 64, 7, 1)]
+
+
+def _two_way_case(dev, B, N, T, Bk, dtype):
+    from two_way_cases import op_case
+
+    _, _, keys, key_pe, k_tok, v_tok, _, _, w = op_case(
+        B, N, T, Bk, dtype, device=dev)
+    return keys, key_pe, k_tok, v_tok, w
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,N,T,Bk", TWO_WAY_CASES)
+@torch.no_grad()
+def test_two_way_kernel_matches_plain(dev, dtype, B, N, T, Bk):
+    # The same rounding points in the same dtype; the sums' order differs,
+    # so a bf16 result may differ from the plain version's by an ulp where
+    # a float32 sum lies near a rounding boundary, and that flip carries
+    # through the later products.  float32: summation order alone.
+    from sam6d_tpu_torch.ops import two_way as tw
+
+    keys, key_pe, k_tok, v_tok, w = _two_way_case(dev, B, N, T, Bk, dtype)
+    launches = tw.KERNEL.launches
+    got = tw.two_way_keys(keys, key_pe, k_tok, v_tok, w, dtype)
+    want = tw.two_way_keys_plain(keys, key_pe, k_tok, v_tok, w, dtype)
+    torch.cuda.synchronize()
+    assert tw.KERNEL.launches == launches + 1
+    rel, tol = (4e-3, 3e-2) if dtype == torch.bfloat16 else (2e-6, 1e-4)
+    for g, x in zip(got, want):
+        assert g.dtype == dtype and g.shape == x.shape
+        assert float((g.float() - x.float()).norm() / x.float().norm()) < rel
+        torch.testing.assert_close(g.float(), x.float(), atol=tol, rtol=tol)
+
+
+@torch.no_grad()
+def test_two_way_kernel_takes_bf16_keys_of_batch_one(dev):
+    # Keys of batch 1 in bf16 (no serving path makes them, the kernel
+    # takes them) and float32 keys of batch B under a bf16 compute dtype
+    # (a mask prompt's first block).
+    from sam6d_tpu_torch.ops import two_way as tw
+
+    for Bk, kd in ((1, torch.bfloat16), (4, torch.float32)):
+        keys, key_pe, k_tok, v_tok, w = _two_way_case(dev, 4, 576, 7, Bk,
+                                                      torch.bfloat16)
+        keys = keys.to(kd)
+        got = tw.two_way_keys(keys, key_pe, k_tok, v_tok, w, torch.bfloat16)
+        want = tw.two_way_keys_plain(keys, key_pe, k_tok, v_tok, w,
+                                     torch.bfloat16)
+        for g, x in zip(got, want):
+            assert float((g.float() - x.float()).norm()
+                         / x.float().norm()) < 4e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@torch.no_grad()
+def test_two_way_kernel_serves_the_transformer(dev, dtype):
+    # Two launches a transformer_forward; tokens and keys near the
+    # transformer as it was written before the kernel, on the card.
+    from two_way_cases import (fill_, parent_transformer, transformer,
+                               transformer_inputs)
+
+    from sam6d_tpu_torch.models.ism.sam.decoder import MaskDecoder
+    from sam6d_tpu_torch.models.layers import cast_dense_weights
+    from sam6d_tpu_torch.ops import two_way as tw
+
+    t = transformer(dtype, device=dev)
+    emb, pe, tokens = transformer_inputs(64, 4096, 7, 1, device=dev)
+    launches = tw.KERNEL.launches
+    got = t(emb, pe, tokens)
+    assert tw.KERNEL.launches == launches + 2
+    want = parent_transformer(t, emb, pe, tokens)
+    rel = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    for g, x in zip(got, want):
+        assert float((g.float() - x.float()).norm() / x.float().norm()) < rel
+    g = torch.Generator().manual_seed(3)
+    dec = cast_dense_weights(fill_(MaskDecoder(dtype=dtype), g).eval()).to(dev)
+    launches = tw.KERNEL.launches
+    dec.transformer_forward(emb, pe, tokens[:, :2], torch.zeros(
+        1, 1, 1, 256, device=dev))
+    assert tw.KERNEL.launches == launches + 2
+
+
+def test_two_way_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from sam6d_tpu_torch.ops import two_way as tw
+
+    bf = torch.bfloat16
+    keys, key_pe, k_tok, v_tok, w = _two_way_case(dev, 3, 64, 7, 3, bf)
+    pe = key_pe.reshape(64, 256)
+    run = tw.two_way_keys_cuda
+    with torch.no_grad():
+        run(keys, pe, k_tok, v_tok, w, bf)  # takes these
+        with pytest.raises(ValueError):  # float16 compute
+            run(keys.half(), pe, k_tok.half(), v_tok.half(), w,
+                torch.float16)
+        with pytest.raises(ValueError):  # bf16 keys, float32 compute
+            run(keys, pe, k_tok.float(), v_tok.float(), w, torch.float32)
+        with pytest.raises(ValueError):  # a batch neither 1 nor B
+            run(keys[:2], pe, k_tok, v_tok, w, bf)
+        with pytest.raises(ValueError):  # 128 channels
+            run(keys[..., :128].contiguous(), pe, k_tok, v_tok, w, bf)
+        with pytest.raises(ValueError):  # not contiguous
+            run(keys.transpose(0, 1).contiguous().transpose(0, 1), pe, k_tok,
+                v_tok, w, bf)
+        with pytest.raises(ValueError):  # bf16 positional encoding
+            run(keys, pe.to(bf), k_tok, v_tok, w, bf)
+        none = torch.zeros(3, 0, 128, device=dev, dtype=bf)
+        with pytest.raises(ValueError):  # a prompt of no tokens
+            run(keys, pe, none, none, w, bf)
+        with pytest.raises(ValueError):  # the tokens of another width
+            run(keys, pe, k_tok[..., :64].contiguous(), v_tok, w, bf)
+        with pytest.raises(ValueError):  # a transposed projection
+            run(keys, pe, k_tok, v_tok, w._replace(wo=w.wq), bf)
+        with pytest.raises(ValueError):  # on the CPU
+            run(keys.cpu(), pe, k_tok, v_tok, w, bf)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        run(keys, pe, k_tok, v_tok, w, bf)  # the weights want a gradient
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_two_way_kernel_trains_through_a_decode(dev, dtype, monkeypatch):
+    # On the card `two_way_keys` launches whether or not a gradient is
+    # wanted: a decode whose weights want one, outside no_grad, launches
+    # K9 twice, and its backward (the plain version's, recomputed) gives
+    # the weights the gradients of the same decode run on plain ops on the
+    # card, up to the forwards' rounding differences.
+    from two_way_cases import fill_, transformer_inputs
+
+    from sam6d_tpu_torch.models.ism.sam import decoder
+    from sam6d_tpu_torch.models.layers import cast_dense_weights
+    from sam6d_tpu_torch.ops import two_way as tw
+
+    emb, pe, tokens = transformer_inputs(4, 576, 7, 1, device=dev)
+    dense = torch.zeros(1, 1, 1, 256, device=dev)
+    g = torch.Generator().manual_seed(3)
+    dec = cast_dense_weights(fill_(decoder.MaskDecoder(dtype=dtype),
+                                   g)).to(dev)
+
+    def grads():
+        dec.zero_grad(set_to_none=True)
+        keys, hyper, iou = dec.transformer_forward(emb, pe, tokens, dense)
+        (keys.float().square().mean() + hyper.float().square().mean()
+         + iou.float().sum()).backward()
+        return {n: p.grad.float() for n, p in dec.named_parameters()
+                if p.grad is not None}
+
+    launches = tw.KERNEL.launches
+    got = grads()
+    assert tw.KERNEL.launches == launches + 2
+    monkeypatch.setattr(decoder, "two_way_keys", tw.two_way_keys_plain)
+    want = grads()
+    assert tw.KERNEL.launches == launches + 2
+    assert set(got) == set(want)
+    assert all(bool(torch.isfinite(x).all()) for x in got.values())
+    # An attention's key bias adds one logit to a whole softmax row: its
+    # gradient is zero in exact arithmetic and float noise on both routes
+    # (as `grads_card_vs_cpu` allows), so it is not compared.
+    errs = {n: float((got[n] - w).norm() / w.norm())
+            for n, w in want.items()
+            if not n.endswith("k_proj.bias") and float(w.norm()) > 0}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    print(f"two_way gradients, {dtype}: {len(errs)} compared, worst {worst}")
+    # float32: the backward itself (1.1e-6 measured on an H100).  bf16:
+    # the two forwards round apart (an ulp flip in kp or vp moves the
+    # tokens by about 1e-2, and the hypernetworks' gradients by up to 7.5%),
+    # so the bar there catches a wrong backward, whose errors are of order 1.
+    assert worst[0][1] < (0.2 if dtype == torch.bfloat16 else 1e-5)
