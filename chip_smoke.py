@@ -771,13 +771,91 @@ def check_attention(dev):
         del q, k, v, out, q4, k4, v4
         if kind == "rpe":
             del mask
-    return rows["rpe"], rows["plain"]
+    return rows["rpe"], rows["plain"] + check_hiera_attention(dev)
+
+
+# SAM 2.1 Hiera-L's K5 calls at 1024 px, (BH, Nq, Nk) at head width 72:
+# windows of stages 1-4, the global blocks, and the three pooling blocks
+# (queries max-pooled 2 x 2 inside each window).
+HIERA_K5 = ((2048, 64, 64), (4096, 16, 16), (128, 256, 256), (256, 64, 64),
+            (8, 4096, 4096), (4096, 16, 64), (8192, 4, 16), (256, 64, 256))
+
+
+def check_hiera_attention(dev):
+    """K5 at Hiera-L's eight shapes (bfloat16, d = 72, fewer queries than
+    keys in the pooling blocks), and one pooled shape in float32 without
+    timing, against the plain version at check_attention's tolerances.
+    Times as there: the wrapper (`ms`), the kernel alone in a burst
+    (`kernel_ms`), the plain version, and F.scaled_dot_product_attention
+    per call and in a burst; the bound counts 4 BH Nq Nk d operations and
+    es BH d (2 Nq + 2 Nk) bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from sam6d_tpu_torch.ops import flash_rpe as fr
+
+    rows = []
+    cases = [(BH, nq, nk, torch.bfloat16, 5) for BH, nq, nk in HIERA_K5]
+    cases.append((64, 16, 64, torch.float32, 0))
+    for BH, nq, nk, dtype, reps in cases:
+        d = 72
+        g = torch.Generator(device=dev).manual_seed(BH + nq + nk)
+        q = torch.randn(BH, nq, d, generator=g, device=dev).to(dtype)
+        k, v = (torch.randn(BH, nk, d, generator=g, device=dev).to(dtype)
+                for _ in range(2))
+        out = torch.empty_like(q)
+        q4, k4, v4 = (t[None] for t in (q, k, v))
+        kern = lambda: fr.flash_attention_cuda(q, k, v)
+        bare = lambda: fr.launch(fr.KERNEL_PLAIN, q, k, v, None, None,
+                                 (0, 0), out)
+        plain = lambda: fr.attention_plain(q, k, v)
+        lib = lambda: F.scaled_dot_product_attention(q4, k4, v4)
+        want = plain().float()
+        out_std = float(want.std())
+        rtol = 1.6e-2 if dtype == torch.bfloat16 else 1e-4
+        atol = (0.05 if dtype == torch.bfloat16 else 1e-4) * out_std
+        dname = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+        shape = f"Hiera ({BH},{nq},{nk},{d}) {dname}"
+        errs = {}
+        for route, fn in (("wrapper", kern), ("kernel", bare)):
+            got = fn().float()
+            torch.cuda.synchronize()
+            errs[route] = float((got - want).abs().max())
+            require(bool(((got - want).abs() <= atol + rtol * want.abs())
+                         .all()),
+                    f"flash {shape} ({route}): max abs err {errs[route]} "
+                    f"(atol {atol}, rtol {rtol})")
+            del got
+        del want
+        row = dict(shape=shape, max_abs_err=max(errs.values()),
+                   max_abs_err_by_route=errs, out_std=out_std, atol=atol,
+                   rtol=rtol)
+        if reps:
+            t = time_in_turns({"kernel": kern, "plain": plain,
+                               "library": lib}, reps)
+            tb = time_in_turns({"kernel": bare, "library": lib}, reps,
+                               burst=20)
+            b_ms, b_by = bound(q.element_size() * BH * d * (2 * nq + 2 * nk),
+                               4 * BH * nq * nk * d, "bfloat16")
+            row.update(ms=t["kernel"], kernel_ms=tb["kernel"],
+                       plain_ms=t["plain"], library_ms=t["library"],
+                       library_burst_ms=tb["library"], bound_ms=b_ms,
+                       bound_by=b_by)
+        else:
+            row.update(ms=None, bound_ms=None)
+        rows.append(row)
+        log(f"flash_hiera {row}")
+        del q, k, v, out, q4, k4, v4
+    return rows
 
 
 def check_decode_tail(dev):
     """K6 at P = 64 and at the AMG's full shape, keys (1024, 4096, 256)
     bf16, and at phase 11's tiny SAM, keys (576, 256, 256) float32 (its
-    24 x 24 prompt grid on a 16 x 16 token grid).  The plain version materializes every stage (several GB in one
+    24 x 24 prompt grid on a 16 x 16 token grid); then SAM 2's residual
+    form at the full shape (res1 (4096, 256) and res0 (4096, 512) in the
+    keys' bf16), which must also differ from the same call without the
+    residuals.  The plain version materializes every stage (several GB in one
     call at P = 1024), so at P = 1024 it runs as 16 calls of 64 prompts,
     each prompt's statistics being its own.  Times: the wrapper (`ms`,
     with its checks and the hi / lo split of W1 and W2), the kernel alone
@@ -793,24 +871,31 @@ def check_decode_tail(dev):
         def r(*shape, s=1.0):
             return torch.randn(*shape, generator=g, device=dev) * s
 
+        # SAM 2's residuals at the scale of a token's upscaled features.
+        res = dict(res1=r(N, 256, s=0.5).to(dtype),
+                   res0=r(N, 512, s=0.5).to(dtype))
         return dict(keys=r(P, N, 256, s=0.5).to(dtype),
                     hyper=r(P, 3, 32, s=0.5), w1=r(256, 256, s=0.05),
                     b1=r(256, s=0.05), ln_scale=1.0 + r(256, s=0.1),
                     ln_bias=r(256, s=0.1), w2=r(64, 128, s=0.1),
-                    b2=r(128, s=0.05))
+                    b2=r(128, s=0.05)), res
 
     kw = dict(mask_threshold=0.0, stability_offset=1.0)
     rows = []
-    for P, N, dtype, reps in ((64, 4096, torch.bfloat16, 5),
-                              (1024, 4096, torch.bfloat16, 5),
-                              (576, 256, torch.float32, 5)):
-        inp = inputs(P, N, dtype, P)
-        kern = lambda: dt.decode_tail_stats_cuda(**inp, **kw)
+    for P, N, dtype, reps, with_res in (
+            (64, 4096, torch.bfloat16, 5, False),
+            (1024, 4096, torch.bfloat16, 5, False),
+            (576, 256, torch.float32, 5, False),
+            (1024, 4096, torch.bfloat16, 5, True)):
+        inp, res = inputs(P, N, dtype, P)
+        if not with_res:
+            res = {}
+        kern = lambda: dt.decode_tail_stats_cuda(**inp, **res, **kw)
 
         def plain(chunk=64):
             return torch.cat([dt.decode_tail_stats_plain(**dict(
                 inp, keys=inp["keys"][i:i + chunk],
-                hyper=inp["hyper"][i:i + chunk]), **kw)
+                hyper=inp["hyper"][i:i + chunk]), **res, **kw)
                 for i in range(0, P, chunk)])
 
         got, want = kern(), plain()
@@ -826,11 +911,19 @@ def check_decode_tail(dev):
         bufs = dt.prepare(inp["keys"], inp["w1"], inp["w2"])
         vec = [inp[k] for k in ("keys", "hyper", "b1", "ln_scale", "ln_bias",
                                 "b2")]
-        bare = lambda: dt.launch(*vec, *bufs, 0.0, 1.0, 1e-6)
+        bare = lambda: dt.launch(*vec, *bufs, 0.0, 1.0, 1e-6,
+                                 res.get("res1"), res.get("res0"))
         bare()
         torch.cuda.synchronize()
         require(torch.equal(bufs[-1], got),
                 f"decode_tail P={P}: the bare launch differs from the wrapper")
+        if with_res:
+            # The residuals are read: the pixel counts move by more than
+            # the 8 a rounding may flip.
+            moved = float((dt.decode_tail_stats_cuda(**inp, **kw) - got)
+                          [:, 6].abs().max())
+            require(moved > 8.0, f"decode_tail P={P} with residuals: the "
+                                 f"counts moved only {moved}")
         del got, want, diff
         t = time_in_turns({"kernel": kern, "plain": plain}, reps)
         tb = time_in_turns({"kernel": bare}, reps, burst=5)
@@ -848,10 +941,15 @@ def check_decode_tail(dev):
                           + 10 * (256 + 512))
         nbytes = (tokens * 256 * inp["keys"].element_size()
                   + P * (96 + 96) * 4 + (256 * 256 + 64 * 128 + 896) * 4)
+        if with_res:  # the residuals once, and their 768 adds a token
+            nbytes += N * (256 + 512) * inp["keys"].element_size()
+            f32_flops += tokens * (256 + 512)
+            flops += tokens * (256 + 512)
         b_ms, b_by = bound_tc(nbytes, tc_flops, f32_flops)
         f32_ms, _ = bound(nbytes, flops, "float32")
         dname = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
-        rows.append(dict(shape=f"P={P}, keys ({P},{N},256) {dname}",
+        rows.append(dict(shape=f"P={P}, keys ({P},{N},256) {dname}"
+                         + (", SAM 2's residuals" if with_res else ""),
                          max_abs_err=err, ms=t["kernel"],
                          kernel_ms=tb["kernel"],
                          plain_ms=t["plain"], plain_calls=P // 64,
@@ -1715,10 +1813,101 @@ def phase_ism(dev):
     log(f"ISM onboarding (1 object x {T} views): {onboard_ms:.1f} ms, "
         f"launches {onboard_launches}")
     log(f"ISM main-path launches {launches}")
+    sam2 = sam2_frame(dev, cfg, desc, det.ref_data, frames[1], kernels)
     frame = frames[1]
     return (lambda: dets_by_frame[1].detect(*frame)), dict(
         onboard_ms=onboard_ms, onboard_launches=onboard_launches,
-        frames=results, launches=launches)
+        frames=results, launches=launches, sam2=sam2)
+
+
+# Hiera-L's query rows x heads a frame at 1024 px, by block kind (blocks
+# 0-1 and 3-7 windowed at 256^2 and 128^2, 9-43 at 64^2 but for the
+# global 23, 33, 43, 45-47 at 32^2; the pooling blocks 2, 8, 44).
+HIERA_ROWS = {"hiera.attn_rows_window": 1_687_552,
+              "hiera.attn_rows_pooled": 114_688,
+              "hiera.attn_rows_global": 98_304, "hiera.attn_rows_plain": 0}
+
+
+def sam2_frame(dev, cfg, desc, ref_data, frame, kernels):
+    """One frame of the ISM with SAM 2.1 Hiera-L at full width (bf16,
+    random weights, thresholds opened), built as the file demo builds it
+    for `--segmentor_model sam2`, on phase 4's templates.  Its launches
+    from zero: 48 K5 launches inside `encode` (one a Hiera block), no K4,
+    one K6 launch in its residual form over all 1024 prompts, 32 K9
+    launches; its counters: Hiera's rows by kind, none plain, 2 x 1024 x
+    4096 fused key rows, 1024 x 4096 residual rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sam6d_tpu_torch.models.ism.detector import ISMDetector
+    from sam6d_tpu_torch.models.ism.sam.amg import SamAutomaticMaskGenerator
+    from sam6d_tpu_torch.models.ism.sam2.model import SAM2
+    from sam6d_tpu_torch.models.layers import cast_dense_weights
+    from sam6d_tpu_torch.ops import flash_rpe
+    from sam6d_tpu_torch.params import init_random_
+    from sam6d_tpu_torch.pipeline.demo import SAM2_MODEL
+    from sam6d_tpu_torch.utils.timer import StageTimer, recording
+
+    seg = dataclasses.replace(cfg.segmentor, model_type=SAM2_MODEL,
+                              pred_iou_thresh=-1e9,
+                              stability_score_thresh=-1e9)
+    sam = SAM2(seg.model_type, dtype=torch.bfloat16, device="cpu")
+    init_random_(sam, torch.Generator().manual_seed(3))
+    sam = cast_dense_weights(sam.to(dev).eval())
+    k5, encode, in_encoder = flash_rpe.KERNEL_PLAIN, sam.encode, []
+
+    def counted_encode(*a, **k):
+        n = k5.launches
+        out = encode(*a, **k)
+        in_encoder.append(k5.launches - n)
+        return out
+
+    sam.encode = counted_encode
+    det = ISMDetector(dataclasses.replace(cfg, segmentor=seg,
+                                          confidence_thresh=-1.0),
+                      SamAutomaticMaskGenerator(sam, seg), desc, device=dev)
+    require(det.segmentor.fused, "SAM 2: the fused AMG tail is not chosen")
+    det.ref_data = ref_data
+    det.detect(*frame)  # warm
+    torch.cuda.synchronize()
+    in_encoder.clear()
+    before = {k.name: k.launches for k in kernels}
+    timer = StageTimer(dev)
+    t0 = time.perf_counter()
+    with recording() as rec:
+        dets = det.detect(*frame, timer=timer)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    lc = {k.name: k.launches - before[k.name] for k in kernels}
+    names = list(HIERA_ROWS) + ["sam.key_rows_fused", "sam.key_rows_plain",
+                                "sam2.tail_residual_rows"]
+    rows = {n: sum(c for name, c, _, _ in rec.counts if name == n)
+            for n in names}
+    P = seg.points_per_side ** 2
+    want = dict(HIERA_ROWS, **{"sam.key_rows_fused": 2 * P * 64 * 64,
+                               "sam.key_rows_plain": 0,
+                               "sam2.tail_residual_rows": P * 64 * 64})
+    require(rows == want, f"SAM 2 frame counters {rows}, want {want}")
+    require(in_encoder == [48], f"SAM 2: K5 launched {in_encoder} times in "
+                                f"the encoder, not 48")
+    require(lc["flash_rpe_attention"] == 0 and lc["decode_tail_stats"] == 1
+            and lc["two_way_keys"] == 32
+            and (lc["flash_attention"] - 48) % 24 == 0,
+            f"SAM 2 frame launches {lc}")
+    n = len(dets)
+    require(n > 0 and dets.masks.shape == (n, 480, 640),
+            f"SAM 2 frame: {n} detections, masks {dets.masks.shape}")
+    require(np.isfinite(dets.scores).all(), "SAM 2 frame: scores")
+    out = dict(frame_ms=ms, stages_ms=timer.report(), counts=rows,
+               launches=lc, hiera_k5_launches=in_encoder[0], detections=n)
+    log(f"SAM 2 frame (thresholds opened): {ms:.1f} ms, detections {n}, "
+        f"launches {lc}, stages " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["stages_ms"].items()))
+    del det, sam
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_once(fn, what: str, warm: int = 1):

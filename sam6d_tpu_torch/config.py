@@ -174,6 +174,9 @@ class SegmentorConfig:
 
     Reference: Instance_Segmentation_Model/configs/model/segmentor_model/sam.yaml
     (stability_score_thresh 0.85, iou_threshold 0.88, points_per_batch 64).
+    `model_type` names SAM's ViT ("vit_b", "vit_l", "vit_h";
+    `models/ism/sam/model.py`) or SAM 2's variant ("sam2.1_hiera_l";
+    `models/ism/sam2/model.py`), which the same generator drives.
     """
 
     model_type: str = "vit_h"

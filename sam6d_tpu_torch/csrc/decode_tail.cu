@@ -4,10 +4,22 @@
 // decode_tail_stats.  Per prompt p and token n of its post-transformer
 // image features keys[p, n, :] (256 channels):
 //
-//   h1  = keys @ W1 + b1                  (256 cols, nesting (a, d, c4))
+//   h1  = keys @ W1 + b1 [+ res1[n]]      (256 cols, nesting (a, d, c4))
 //   g   = gelu_s(LN_64(h1) * lns + lnb)   (LayerNorm over each 64-col group)
-//   y2  = gelu_s(g[ad] @ W2 + b2)         (per group ad: 128 cols (e, f, c8))
+//   y2  = gelu_s(g[ad] @ W2 + b2 [+ res0[n, ad]])  (per group ad: 128
+//                                          cols (e, f, c8))
 //   m   = y2[(e, f)] . hyper[p, t]        (t < 3 mask tokens)
+//
+// res1 and res0 are SAM 2's high-resolution features (its mask decoder
+// adds conv_s1's 64 channels at 2x the key grid before the LayerNorm and
+// conv_s0's 32 at 4x before the second GELU), one image's for every
+// prompt, in the layout of the key rows: res1 (N, 256) nesting (a, d,
+// c4), res0 (N, 4 (a, d), 128 (e, f, c8)), in the keys' dtype.  Every
+// prompt reads the same 1.5 KB a token (bf16), so they come from L2
+// after the first prompt; a lane loads the pairs of its fragment
+// columns.  SAM's calls pass none and run an instance without them
+// (RES = false), whose code is the one before SAM 2 (a runtime branch
+// cost SAM's calls 3.7% at P = 1024).
 //
 // where gelu_s(x) = x * sigmoid(1.702 x), the sigmoid form the TPU kernel
 // uses (the exact-erf tail is recomputed only for the kept candidates).
@@ -139,6 +151,15 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// Two consecutive residual values, as float32.
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
 __device__ __forceinline__ float gelu_s(float x) {
   return __fdividef(x, 1.0f + __expf(-1.702f * x));
 }
@@ -220,7 +241,7 @@ __device__ __forceinline__ void fetch_keys(const Smem<F32>& s, const T* keys,
   }
 }
 
-template <bool F32, typename T>
+template <bool F32, typename T, bool RES>
 __global__ void __launch_bounds__(Cfg<F32>::kThreads, 1)
     decode_tail_mma_kernel(const T* __restrict__ keys,
                            const float* __restrict__ hyper,
@@ -230,6 +251,8 @@ __global__ void __launch_bounds__(Cfg<F32>::kThreads, 1)
                            const float* __restrict__ lnb,
                            const __nv_bfloat16* __restrict__ w2s,
                            const float* __restrict__ b2,
+                           const T* __restrict__ res1,
+                           const T* __restrict__ res0,
                            float* __restrict__ partial, int N, int side,
                            int n_tiles, int n_items, float thr, float off,
                            float eps) {
@@ -365,6 +388,8 @@ __global__ void __launch_bounds__(Cfg<F32>::kThreads, 1)
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         float sa = 0.0f, sb = 0.0f;
+        // This lane's rows of m-tile m: r0 and r0 + 8.
+        const int na = n0 + 32 * warp + 16 * m + r0, nb = na + 8;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int c = ad * kG + 8 * j + 2 * q;
@@ -372,6 +397,20 @@ __global__ void __launch_bounds__(Cfg<F32>::kThreads, 1)
           acc[m][j][1] += s.b1[c + 1];
           acc[m][j][2] += s.b1[c];
           acc[m][j][3] += s.b1[c + 1];
+          if constexpr (RES) {
+            if (na < N) {
+              const float2 r =
+                  load_pair(res1 + static_cast<int64_t>(na) * kC + c);
+              acc[m][j][0] += r.x;
+              acc[m][j][1] += r.y;
+            }
+            if (nb < N) {
+              const float2 r =
+                  load_pair(res1 + static_cast<int64_t>(nb) * kC + c);
+              acc[m][j][2] += r.x;
+              acc[m][j][3] += r.y;
+            }
+          }
           sa += acc[m][j][0] + acc[m][j][1];
           sb += acc[m][j][2] + acc[m][j][3];
         }
@@ -446,13 +485,30 @@ __global__ void __launch_bounds__(Cfg<F32>::kThreads, 1)
         for (int m = 0; m < 2; ++m) {
 #pragma unroll
           for (int t = 0; t < 3; ++t) mt[m][0][t] = mt[m][1][t] = 0.0f;
+          const int na = n0 + 32 * warp + 16 * m + r0, nb = na + 8;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int c = 32 * ef + 8 * j + 2 * q;
-            const float u0 = gelu_s(y[m][j][0] + s.b2[c]);
-            const float u1 = gelu_s(y[m][j][1] + s.b2[c + 1]);
-            const float u2 = gelu_s(y[m][j][2] + s.b2[c]);
-            const float u3 = gelu_s(y[m][j][3] + s.b2[c + 1]);
+            float z0 = y[m][j][0] + s.b2[c], z1 = y[m][j][1] + s.b2[c + 1];
+            float z2 = y[m][j][2] + s.b2[c], z3 = y[m][j][3] + s.b2[c + 1];
+            if constexpr (RES) {
+              if (na < N) {
+                const float2 r = load_pair(
+                    res0 + (static_cast<int64_t>(na) * 4 + ad) * kS2 + c);
+                z0 += r.x;
+                z1 += r.y;
+              }
+              if (nb < N) {
+                const float2 r = load_pair(
+                    res0 + (static_cast<int64_t>(nb) * 4 + ad) * kS2 + c);
+                z2 += r.x;
+                z3 += r.y;
+              }
+            }
+            const float u0 = gelu_s(z0);
+            const float u1 = gelu_s(z1);
+            const float u2 = gelu_s(z2);
+            const float u3 = gelu_s(z3);
 #pragma unroll
             for (int t = 0; t < 3; ++t) {
               mt[m][0][t] =
@@ -559,13 +615,14 @@ __global__ void reduce_tiles_kernel(const float* __restrict__ partial,
   stats[static_cast<int64_t>(p) * kStats + i] = v;
 }
 
-template <bool F32, typename T>
+template <bool F32, typename T, bool RES>
 int launch(const void* keys, const void* hyper, const void* w1s,
            const void* b1, const void* lns, const void* lnb, const void* w2s,
-           const void* b2, void* partial, void* stats, int P, int N, int side,
-           float thr, float off, float eps, cudaStream_t st) {
+           const void* b2, const void* res1, const void* res0, void* partial,
+           void* stats, int P, int N, int side, float thr, float off,
+           float eps, cudaStream_t st) {
   using C = Cfg<F32>;
-  auto kern = decode_tail_mma_kernel<F32, T>;
+  auto kern = decode_tail_mma_kernel<F32, T, RES>;
   static bool attr_set[16] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -589,6 +646,7 @@ int launch(const void* keys, const void* hyper, const void* w1s,
       static_cast<const __nv_bfloat16*>(w1s), static_cast<const float*>(b1),
       static_cast<const float*>(lns), static_cast<const float*>(lnb),
       static_cast<const __nv_bfloat16*>(w2s), static_cast<const float*>(b2),
+      static_cast<const T*>(res1), static_cast<const T*>(res0),
       static_cast<float*>(partial), N, side, n_tiles, n_items, thr, off, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -602,22 +660,31 @@ int launch(const void* keys, const void* hyper, const void* w1s,
 // keys (P, N, 256) float32 or bfloat16 (is_bf16), N = side * side, 16-byte
 // aligned; hyper (P, 3, 32) float32; w1s (2, 256, 256) bf16: hi and lo of
 // W1^T ([out][in]); b1 / lns / lnb (256) float32; w2s (2, 128, 64) bf16:
-// hi and lo of W2^T; b2 (128) float32; partial (P, ceil(N / rows), 8, 12)
-// float32 scratch (rows: 256 tokens for bf16 keys, 128 for float32, as
-// Cfg::kRows); stats (P, 8, 12) float32 out.
+// hi and lo of W2^T; b2 (128) float32; res1 (N, 256) and res0 (N, 512)
+// in the keys' dtype, one image's high-resolution features in the key
+// rows' layout, both or neither (null: SAM's instance, which reads
+// none); partial (P, ceil(N / rows), 8, 12) float32 scratch (rows: 256
+// tokens for bf16 keys, 128 for float32, as Cfg::kRows); stats (P, 8,
+// 12) float32 out.
 // Returns the CUDA error of the launches.
 extern "C" int decode_tail_stats(const void* keys, const void* hyper,
                                  const void* w1s, const void* b1,
                                  const void* lns, const void* lnb,
                                  const void* w2s, const void* b2,
+                                 const void* res1, const void* res0,
                                  void* partial, void* stats, int P, int N,
                                  int side, float thr, float off, float eps,
                                  int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((res1 == nullptr) != (res0 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool res = res1 != nullptr;
   if (is_bf16)
-    return launch<false, __nv_bfloat16>(keys, hyper, w1s, b1, lns, lnb, w2s,
-                                        b2, partial, stats, P, N, side, thr,
-                                        off, eps, st);
-  return launch<true, float>(keys, hyper, w1s, b1, lns, lnb, w2s, b2, partial,
-                             stats, P, N, side, thr, off, eps, st);
+    return (res ? launch<false, __nv_bfloat16, true>
+                : launch<false, __nv_bfloat16, false>)(
+        keys, hyper, w1s, b1, lns, lnb, w2s, b2, res1, res0, partial, stats,
+        P, N, side, thr, off, eps, st);
+  return (res ? launch<true, float, true> : launch<true, float, false>)(
+      keys, hyper, w1s, b1, lns, lnb, w2s, b2, res1, res0, partial, stats, P,
+      N, side, thr, off, eps, st);
 }

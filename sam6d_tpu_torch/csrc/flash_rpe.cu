@@ -6,7 +6,16 @@
 //       bias[n, m] = q[n].Rh[y(n) - y(m) + h - 1] + q[n].Rw[x(n) - x(m) + w - 1]
 //       (y, x: a token's row and column on the (h, w) grid, row-major),
 //   K5  sam6d_tpu/ops/pallas/flash_rpe.py:flash_attention (BIAS = false)
-//       out = softmax(q k^T / sqrt(d)) v.
+//       out = softmax(q k^T / sqrt(d)) v, with Nq query rows against Nk
+//       keys (Nq <= Nk: Hiera's pooled queries meet the unpooled window).
+//
+// Head widths 16, 32, 64, 80, 128, and 72 for K5 (Hiera, SAM 2's image
+// encoder).  A width that is no multiple of 16 runs in the instance of
+// the next multiple: the rows are copied to shared memory at their own
+// width, the columns up to the padded width are zero there (set once a
+// block; the copies never write them), so q.k sums nothing extra, P.v
+// computes columns that are never stored, and 1/sqrt(d) takes the true
+// width.  No padded copy of q, k or v is made in device memory.
 //
 // The kernel takes the raw tables Rh (2h - 1, d) and Rw (2w - 1, d) in q's
 // dtype.  Each block builds the per-token tables of its own query rows,
@@ -25,11 +34,12 @@
 // TB/s: 0.015, 0.161 and 0.005 ms), and in practice the few dependent
 // key tiles each block walks (chip_smoke.py phase 2 computes both).
 //
-// bfloat16 instance (the serving path), `flash_fwd_mma_kernel<DK, MT, BIAS>`:
+// bfloat16 instance (the serving path), `flash_fwd_mma_kernel<HD, MT, BIAS>`
+// (HD: the head width):
 //
 // * Block: 4 warps; warp w owns MT tiles of 16 query rows, so a block
 //   holds 64 MT queries of one batch-head.  MT = 2 for the long sequences
-//   (N > 1024, d <= 80: the global blocks): each K and V fragment fetched
+//   (Nq > 1024, d <= 80: the global blocks): each K and V fragment fetched
 //   from shared memory feeds two mma.sync, which halves the shared-memory
 //   traffic per product.  MT = 1 for the 196-token windows (4 blocks of
 //   64 rows; the fourth block runs one warp: 208 query rows computed for
@@ -85,8 +95,8 @@
 //   queries to 256 and 257 to 384, and each product was waited for before
 //   the softmax, so nothing overlapped the products inside a warpgroup.
 //
-// float32 instance (tiny configurations, tests), `flash_fwd_kernel`: 256
-// threads on the CUDA cores; thread (ty, tx) computes logits of rows
+// float32 instance (tiny configurations, tests), `flash_fwd_kernel<HD,
+// BIAS>`: 256 threads on the CUDA cores; thread (ty, tx) computes logits of rows
 // 4 ty .. 4 ty + 3 against keys tx + 16 j, j < 4, from float4 loads (rows
 // padded to d + 4 floats), and accumulates rows 4 ty + i, dims tx + 16 c;
 // the probabilities pass through shared memory to the P.v product.  It
@@ -109,28 +119,30 @@ constexpr int kPStride = kBQ + 4;
 constexpr int kMaxGrid = 64;   // largest h, w of the bias tables
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int HD, int D>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const float* __restrict__ src,
                                           int row0, int n_rows) {
-  // rows [row0, row0 + 64) of a (N, D) matrix into dst[64][D + 4], zeros
-  // beyond n_rows.
+  // rows [row0, row0 + 64) of a (N, HD) matrix into dst[64][D + 4], zeros
+  // beyond n_rows and in the columns HD .. D - 1.
   for (int idx = threadIdx.x; idx < kBK * D; idx += kThreads) {
     const int r = idx / D;
     const int c = idx - r * D;
     const int row = row0 + r;
-    dst[r * (D + 4) + c] =
-        row < n_rows ? src[static_cast<int64_t>(row) * D + c] : 0.0f;
+    dst[r * (D + 4) + c] = row < n_rows && c < HD
+                               ? src[static_cast<int64_t>(row) * HD + c]
+                               : 0.0f;
   }
 }
 
-template <int DV, bool BIAS>
+template <int HD, bool BIAS>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ rel_h,
                      const float* __restrict__ rel_w, float* __restrict__ out,
-                     int N, int h, int w, float scale) {
+                     int Nq, int N, int h, int w, float scale) {
+  constexpr int DV = (HD + 15) / 16;
   constexpr int D = 16 * DV;
   constexpr int DS = D + 4;
   extern __shared__ __align__(16) float smem[];
@@ -146,9 +158,10 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = tid & 15;
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
-  const int64_t base = static_cast<int64_t>(bh) * N * D;
+  const int64_t qbase = static_cast<int64_t>(bh) * Nq * HD;
+  const int64_t base = static_cast<int64_t>(bh) * N * HD;
 
-  load_tile<D>(sQ, q + base, q0, N);
+  load_tile<HD, D>(sQ, q + qbase, q0, Nq);
   if (BIAS) {
     // QRh[r, Y] = q[r].Rh[y(r) - Y + h - 1] and QRw[r, X] alike, for the
     // block's rows (rows beyond N take grid position 0).
@@ -163,10 +176,10 @@ __global__ void __launch_bounds__(kThreads)
       const int yn = n < N ? n / w : 0;
       const int pos = n < N ? (is_h ? yn : n - yn * w) : 0;
       const float* R = (is_h ? rel_h : rel_w) +
-                       static_cast<int64_t>(pos - c + side - 1) * D;
+                       static_cast<int64_t>(pos - c + side - 1) * HD;
       const float* qr = sQ + r * DS;
       float acc = 0.0f;
-      for (int cc = 0; cc < D; ++cc) acc = fmaf(qr[cc], R[cc], acc);
+      for (int cc = 0; cc < HD; ++cc) acc = fmaf(qr[cc], R[cc], acc);
       (is_h ? sRh : sRw)[j] = acc;
     }
   }
@@ -184,8 +197,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's sK / sV / sP are consumed
-    load_tile<D>(sK, k + base, k0, N);
-    load_tile<D>(sV, v + base, k0, N);
+    load_tile<HD, D>(sK, k + base, k0, N);
+    load_tile<HD, D>(sV, v + base, k0, N);
     __syncthreads();
 
     float s[4][4];
@@ -276,11 +289,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
-    if (row >= N) continue;
+    if (row >= Nq) continue;
     const float inv = 1.0f / fmaxf(l_i[i], 1e-30f);
-    float* o = out + base + static_cast<int64_t>(row) * D;
+    float* o = out + qbase + static_cast<int64_t>(row) * HD;
 #pragma unroll
-    for (int c = 0; c < DV; ++c) o[tx + 16 * c] = acc[i][c] * inv;
+    for (int c = 0; c < DV; ++c)
+      if (HD == D || tx + 16 * c < HD) o[tx + 16 * c] = acc[i][c] * inv;
   }
 }
 
@@ -345,23 +359,38 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// rows [row0, row0 + ROWS) of a (n_rows, D) bf16 matrix into
-// dst[ROWS][D + 8] with cp.async, zeros beyond n_rows; 128 threads.
-template <int D, int ROWS>
+// rows [row0, row0 + ROWS) of a (n_rows, HD) bf16 matrix into
+// dst[ROWS][D + 8] with cp.async, zeros beyond n_rows; 128 threads.  The
+// columns HD .. D - 1 are left as they are (`zero_pad_columns`).
+template <int HD, int D, int ROWS>
 __device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
                                                 const __nv_bfloat16* src,
                                                 int row0, int n_rows) {
-  constexpr int kChunks = D / 8;
-  static_assert(ROWS * kChunks % 128 == 0, "whole rounds of 128 copies");
+  constexpr int kChunks = HD / 8;
+  constexpr int kRounds = (ROWS * kChunks + 127) / 128;
 #pragma unroll
-  for (int i = 0; i < ROWS * kChunks / 128; ++i) {
+  for (int i = 0; i < kRounds; ++i) {
     const int idx = threadIdx.x + 128 * i;
+    if (ROWS * kChunks % 128 != 0 && idx >= ROWS * kChunks) break;
     const int r = idx / kChunks;
     const int c = (idx - r * kChunks) * 8;
     const int row = row0 + r;
     const bool ok = row < n_rows;
     cp_async16(smem_addr(dst + r * (D + 8) + c),
-               src + static_cast<int64_t>(ok ? row : 0) * D + c, ok);
+               src + static_cast<int64_t>(ok ? row : 0) * HD + c, ok);
+  }
+}
+
+// Zeros in the columns HD .. D - 1 of `rows` shared rows of D + 8 bf16
+// elements: the padding of a head width that is no multiple of 16.
+template <int HD, int D>
+__device__ __forceinline__ void zero_pad_columns(__nv_bfloat16* dst,
+                                                 int rows) {
+  constexpr int kPad = (D - HD) / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < rows * kPad; i += 128) {
+    const int r = i / kPad;
+    *reinterpret_cast<uint4*>(dst + r * (D + 8) + HD + 8 * (i - r * kPad)) =
+        make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -418,16 +447,17 @@ __device__ __forceinline__ void rel_table(float* tbl, int stride, int swz,
   }
 }
 
-template <int DK, int MT, bool BIAS>
-__global__ void __launch_bounds__(128, (MT == 2 || DK == 8) ? 2 : 3)
+template <int HD, int MT, bool BIAS>
+__global__ void __launch_bounds__(128, (MT == 2 || HD > 80) ? 2 : 3)
     flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          const __nv_bfloat16* __restrict__ rel_h,
                          const __nv_bfloat16* __restrict__ rel_w,
-                         __nv_bfloat16* __restrict__ out, int N, int h, int w,
-                         float scale_log2) {
-  constexpr int D = 16 * DK;   // head dim: DK k-steps of q.k
+                         __nv_bfloat16* __restrict__ out, int Nq, int N,
+                         int h, int w, float scale_log2) {
+  constexpr int DK = (HD + 15) / 16;  // k-steps of q.k
+  constexpr int D = 16 * DK;   // head dim, padded to whole k-steps
   constexpr int DN = 2 * DK;   // n-tiles of 8 columns of P.v
   constexpr int DS = D + 8;    // padded shared row, bf16 elements
   constexpr int BQ = 64 * MT;  // queries per block
@@ -450,14 +480,18 @@ __global__ void __launch_bounds__(128, (MT == 2 || DK == 8) ? 2 : 3)
   const int wr = (tid >> 5) * 16 * MT;  // the warp's first row in the block
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int64_t base = static_cast<int64_t>(bh) * N * D;
-  const bool active = q0 + wr < N;  // warp-uniform
+  const int64_t qbase = static_cast<int64_t>(bh) * Nq * HD;
+  const int64_t base = static_cast<int64_t>(bh) * N * HD;
+  const bool active = q0 + wr < Nq;  // warp-uniform
   const int n_tiles = (N + kBK - 1) / kBK;
 
-  load_rows_async<D, BQ>(sQ, q + base, q0, N);
+  // The padded columns of the four ring tiles (Q's included), zero for
+  // the whole pass; made visible by the barrier below.
+  if constexpr (HD != D) zero_pad_columns<HD, D>(ring, 4 * kBK);
+  load_rows_async<HD, D, BQ>(sQ, q + qbase, q0, Nq);
   cp_async_commit();
-  load_rows_async<D, kBK>(ring, k + base, 0, N);
-  load_rows_async<D, kBK>(ring + kTile, v + base, 0, N);
+  load_rows_async<HD, D, kBK>(ring, k + base, 0, N);
+  load_rows_async<HD, D, kBK>(ring + kTile, v + base, 0, N);
   cp_async_commit();
   cp_async_wait<1>();  // Q has landed; tile 0 may still be in flight
   __syncthreads();
@@ -472,8 +506,8 @@ __global__ void __launch_bounds__(128, (MT == 2 || DK == 8) ? 2 : 3)
                                     ks * 16 + (lane >> 4) * 8));
   __syncthreads();  // stage 1 is free for tile 1
   if (n_tiles > 1) {
-    load_rows_async<D, kBK>(ring + 2 * kTile, k + base, kBK, N);
-    load_rows_async<D, kBK>(ring + 3 * kTile, v + base, kBK, N);
+    load_rows_async<HD, D, kBK>(ring + 2 * kTile, k + base, kBK, N);
+    load_rows_async<HD, D, kBK>(ring + 3 * kTile, v + base, kBK, N);
   }
   cp_async_commit();
 
@@ -694,8 +728,8 @@ __global__ void __launch_bounds__(128, (MT == 2 || DK == 8) ? 2 : 3)
     }
     __syncthreads();  // every warp is done with stage st
     if (t + 2 < n_tiles) {
-      load_rows_async<D, kBK>(ring + 2 * st * kTile, k + base, (t + 2) * kBK, N);
-      load_rows_async<D, kBK>(ring + (2 * st + 1) * kTile, v + base, (t + 2) * kBK, N);
+      load_rows_async<HD, D, kBK>(ring + 2 * st * kTile, k + base, (t + 2) * kBK, N);
+      load_rows_async<HD, D, kBK>(ring + (2 * st + 1) * kTile, v + base, (t + 2) * kBK, N);
     }
     cp_async_commit();
   }
@@ -710,11 +744,11 @@ __global__ void __launch_bounds__(128, (MT == 2 || DK == 8) ? 2 : 3)
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const int row = q0 + wr + 16 * mt + g + 8 * r;
-      if (row >= N) continue;
+      if (row >= Nq) continue;
       const float inv = 1.0f / fmaxf(l, 1e-30f);
-      __nv_bfloat16* orow = out + base + static_cast<int64_t>(row) * D + 2 * tg;
+      __nv_bfloat16* orow = out + qbase + static_cast<int64_t>(row) * HD + 2 * tg;
 #pragma unroll
-      for (int nd = 0; nd < DN; ++nd)
+      for (int nd = 0; nd < HD / 8; ++nd)  // the padded columns stay
         *reinterpret_cast<uint32_t*>(orow + nd * 8) =
             pack_bf16(o[mt][nd][2 * r] * inv, o[mt][nd][2 * r + 1] * inv);
     }
@@ -737,11 +771,11 @@ cudaError_t allow_smem(Kern kern, size_t bytes, std::atomic<unsigned>& done) {
   return err;
 }
 
-template <int DK, int MT, bool BIAS>
+template <int HD, int MT, bool BIAS>
 int launch_mma(const void* q, const void* k, const void* v, const void* rh,
-               const void* rw, void* out, int BH, int N, int h, int w,
+               const void* rw, void* out, int BH, int Nq, int N, int h, int w,
                cudaStream_t st) {
-  constexpr int D = 16 * DK;
+  constexpr int D = 16 * ((HD + 15) / 16);
   constexpr int BQ = 64 * MT;
   auto smem_for = [](int h, int w) {
     size_t b = sizeof(__nv_bfloat16) * 4 * kBK * (D + 8);
@@ -750,103 +784,113 @@ int launch_mma(const void* q, const void* k, const void* v, const void* rh,
     return b;
   };
   const size_t smem = smem_for(h, w);
-  auto kern = flash_fwd_mma_kernel<DK, MT, BIAS>;
+  auto kern = flash_fwd_mma_kernel<HD, MT, BIAS>;
   static std::atomic<unsigned> allowed{0};
   cudaError_t err = allow_smem(kern, smem_for(kMaxGrid, kMaxGrid), allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
-  dim3 grid((N + BQ - 1) / BQ, BH);
+  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(HD));
+  dim3 grid((Nq + BQ - 1) / BQ, BH);
   kern<<<grid, 128, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(rh),
-      static_cast<const __nv_bfloat16*>(rw), static_cast<__nv_bfloat16*>(out), N,
-      h, w, scale_log2);
+      static_cast<const __nv_bfloat16*>(rw), static_cast<__nv_bfloat16*>(out), Nq,
+      N, h, w, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Two m-tiles a warp for the long sequences at d <= 80 (the global SAM
-// blocks), one for the 196-token windows, N <= 1024 and d = 128.
-template <int DK, bool BIAS>
+// and Hiera blocks), one for the windows, Nq <= 1024 and d = 128.
+template <int HD, bool BIAS>
 int launch_bf16(const void* q, const void* k, const void* v, const void* rh,
-                const void* rw, void* out, int BH, int N, int h, int w,
-                cudaStream_t st) {
-  if constexpr (DK <= 5) {
-    if (N > 1024)
-      return launch_mma<DK, 2, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
+                const void* rw, void* out, int BH, int Nq, int N, int h,
+                int w, cudaStream_t st) {
+  if constexpr (HD <= 80) {
+    if (Nq > 1024)
+      return launch_mma<HD, 2, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
   }
-  return launch_mma<DK, 1, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
+  return launch_mma<HD, 1, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
 }
 
 template <bool BIAS>
 int dispatch_mma(int d, const void* q, const void* k, const void* v,
-                 const void* rh, const void* rw, void* out, int BH, int N,
-                 int h, int w, cudaStream_t st) {
+                 const void* rh, const void* rw, void* out, int BH, int Nq,
+                 int N, int h, int w, cudaStream_t st) {
   switch (d) {
-    case 16: return launch_bf16<1, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
-    case 32: return launch_bf16<2, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
-    case 64: return launch_bf16<4, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
-    case 80: return launch_bf16<5, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
-    case 128: return launch_bf16<8, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
+    case 16: return launch_bf16<16, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
+    case 32: return launch_bf16<32, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
+    case 64: return launch_bf16<64, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
+    case 72:  // Hiera's heads: K5 only
+      if constexpr (!BIAS)
+        return launch_bf16<72, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
+      return static_cast<int>(cudaErrorInvalidValue);
+    case 80: return launch_bf16<80, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
+    case 128: return launch_bf16<128, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <int DV, bool BIAS>
+template <int HD, bool BIAS>
 int launch(const void* q, const void* k, const void* v, const void* rh,
-           const void* rw, void* out, int BH, int N, int h, int w,
+           const void* rw, void* out, int BH, int Nq, int N, int h, int w,
            cudaStream_t st) {
-  constexpr int DS = 16 * DV + 4;
+  constexpr int DS = 16 * ((HD + 15) / 16) + 4;
   auto smem_for = [](int h, int w) {
     size_t b = sizeof(float) * (3 * kBQ * DS + kBK * kPStride);
     if (BIAS) b += sizeof(float) * kBQ * (h + w);
     return b;
   };
   const size_t smem = smem_for(h, w);
-  auto kern = flash_fwd_kernel<DV, BIAS>;
+  auto kern = flash_fwd_kernel<HD, BIAS>;
   static std::atomic<unsigned> allowed{0};
   cudaError_t err = allow_smem(kern, smem_for(kMaxGrid, kMaxGrid), allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + kBQ - 1) / kBQ, BH);
+  dim3 grid((Nq + kBQ - 1) / kBQ, BH);
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(rh),
-      static_cast<const float*>(rw), static_cast<float*>(out), N, h, w,
-      1.0f / sqrtf(static_cast<float>(16 * DV)));
+      static_cast<const float*>(rw), static_cast<float*>(out), Nq, N, h, w,
+      1.0f / sqrtf(static_cast<float>(HD)));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool BIAS>
 int dispatch_d(int d, const void* q, const void* k, const void* v,
-               const void* rh, const void* rw, void* out, int BH, int N,
-               int h, int w, cudaStream_t st) {
+               const void* rh, const void* rw, void* out, int BH, int Nq,
+               int N, int h, int w, cudaStream_t st) {
   switch (d) {
-    case 16: return launch<1, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
-    case 32: return launch<2, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
-    case 64: return launch<4, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
-    case 80: return launch<5, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
-    case 128: return launch<8, BIAS>(q, k, v, rh, rw, out, BH, N, h, w, st);
+    case 16: return launch<16, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
+    case 32: return launch<32, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
+    case 64: return launch<64, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
+    case 72:
+      if constexpr (!BIAS)
+        return launch<72, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
+      return static_cast<int>(cudaErrorInvalidValue);
+    case 80: return launch<80, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
+    case 128: return launch<128, BIAS>(q, k, v, rh, rw, out, BH, Nq, N, h, w, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// q, k, v, out: (BH, N, d) contiguous, float32 or bfloat16 (is_bf16).
-// rel_h (2h - 1, d) and rel_w (2w - 1, d) in q's dtype with N == h * w,
-// or both null for attention without bias.  d in {16, 32, 64, 80, 128};
-// h, w <= 64.  Returns the CUDA error of the launch (0 on success).
+// q, out: (BH, Nq, d); k, v: (BH, N, d); contiguous, float32 or bfloat16
+// (is_bf16).  rel_h (2h - 1, d) and rel_w (2w - 1, d) in q's dtype with
+// Nq == N == h * w, or both null for attention without bias.  d in {16,
+// 32, 64, 80, 128}, and 72 without bias; h, w <= 64.  Returns the CUDA
+// error of the launch (0 on success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const void* rel_h, const void* rel_w, void* out,
-                              int BH, int N, int d, int h, int w, int is_bf16,
-                              void* stream) {
+                              int BH, int Nq, int N, int d, int h, int w,
+                              int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bias = rel_h != nullptr;
-  if (bias && (h > kMaxGrid || w > kMaxGrid || h * w != N))
+  if (Nq < 1 || Nq > N ||
+      (bias && (h > kMaxGrid || w > kMaxGrid || h * w != N || Nq != N)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16) {
-    return bias ? dispatch_mma<true>(d, q, k, v, rel_h, rel_w, out, BH, N, h, w, st)
-                : dispatch_mma<false>(d, q, k, v, rel_h, rel_w, out, BH, N, h, w, st);
+    return bias ? dispatch_mma<true>(d, q, k, v, rel_h, rel_w, out, BH, Nq, N, h, w, st)
+                : dispatch_mma<false>(d, q, k, v, rel_h, rel_w, out, BH, Nq, N, h, w, st);
   }
-  return bias ? dispatch_d<true>(d, q, k, v, rel_h, rel_w, out, BH, N, h, w, st)
-              : dispatch_d<false>(d, q, k, v, rel_h, rel_w, out, BH, N, h, w, st);
+  return bias ? dispatch_d<true>(d, q, k, v, rel_h, rel_w, out, BH, Nq, N, h, w, st)
+              : dispatch_d<false>(d, q, k, v, rel_h, rel_w, out, BH, Nq, N, h, w, st);
 }

@@ -16,6 +16,17 @@ Two decode paths, as in the JAX package:
 * unfused: every prompt's logits materialized (the second oracle).
 `cfg.fused_tail=None` picks the fused path when the tensors lie on a CUDA
 device (the JAX rule is "on TPU").
+
+The model is SAM (`sam/model.py`) or SAM 2 (`sam2/model.py`, whose
+SAM2AutomaticMaskGenerator takes the same grid prompts and defaults).
+The embedding `encode` returns goes to the model's decode and tail
+methods as it is (SAM 2's carries its high-resolution features).  The
+model's `preprocess` gives its input-per-pixel scale, one for both axes
+(SAM's) or (x, y), and boxes go back by axis.  A model with
+`square_resize` stretches the frame to its square input (the scales
+differ), grid points map to (S x / W, S y / H), and the kept masks are
+resized from the logit grid straight to the frame
+(SAM2Transforms.postprocess_masks), not through SAM's padded input.
 """
 
 from __future__ import annotations
@@ -91,8 +102,10 @@ class SamAutomaticMaskGenerator:
             mid_h, mid_w = int(ws * H / W), ws
             work = pil_bilinear_resize(work, mid_h, mid_w)
             box_scale = W / ws
+        square = getattr(self.sam, "square_resize", False)
         with stage(timer, "encoder"):
             img, scale, (eff_h, eff_w) = self.sam.preprocess(work)
+            sx, sy = np.broadcast_to(scale, 2)  # SAM's one scale, or two
             embedding = self.sam.encode(img[None])
         pts = self.point_grid * np.array([eff_w, eff_h], np.float32)
         pts = torch.from_numpy(pts).to(dev)[None]
@@ -120,8 +133,9 @@ class SamAutomaticMaskGenerator:
             idx = idx[nms(boxes_k[idx], iou_k[idx], cfg.box_nms_thresh)]
             masks = _upscale_masks(
                 logits_k[torch.from_numpy(idx).to(dev)], eff_h, eff_w, H, W,
-                cfg.mask_threshold, mid_h, mid_w).cpu().numpy()
-            boxes = boxes_k[idx] / scale * box_scale
+                cfg.mask_threshold, mid_h, mid_w, square).cpu().numpy()
+            boxes = (boxes_k[idx] / np.array([sx, sy, sx, sy], np.float32)
+                     * box_scale)
             boxes[:, 0::2] = np.clip(boxes[:, 0::2], 0, W - 1)
             boxes[:, 1::2] = np.clip(boxes[:, 1::2], 0, H - 1)
             if cfg.min_mask_region_area > 0:
@@ -180,8 +194,9 @@ def fused_candidates(embedding, points, *, sam, points_per_batch: int,
     iou = torch.cat(iou).reshape(-1)
     N = keys.shape[1]
     stats = decode_tail_stats(
-        keys, hyper3.float().contiguous(), **sam.decoder_tail_params(),
-        mask_threshold=mask_threshold, stability_offset=stability_offset)
+        keys, hyper3.float().contiguous(),
+        **sam.decoder_tail_params(embedding), mask_threshold=mask_threshold,
+        stability_offset=stability_offset)
     h = int(round(N ** 0.5))
     stability, boxes, _ = fold_stats(stats, sam.input_size / (4 * h))
     return keys, hyper3, iou, stability.reshape(-1), boxes.reshape(-1, 4)
@@ -198,23 +213,28 @@ def _decode_and_filter_fused(embedding, points, *, sam,
     keep = top_k_indices(iou + 1e-3 * stability, top_k)
     prompt_idx, tok = keep // 3, keep % 3
     logits_k = sam.decode_tail(keys[prompt_idx],
-                               hyper3[prompt_idx, tok][:, None], h, h)[:, 0]
+                               hyper3[prompt_idx, tok][:, None], h, h,
+                               embedding)[:, 0]
     return logits_k, iou[keep], stability[keep], boxes[keep]
 
 
 def _upscale_masks(logits, eff_h: int, eff_w: int, out_h: int, out_w: int,
                    mask_threshold: float, mid_h: int | None = None,
-                   mid_w: int | None = None):
+                   mid_w: int | None = None, direct: bool = False):
     """(K, h, w) logits -> (K, out_h, out_w) bool at the frame's size.
 
     The reference chain resize(256 -> 1024) -> crop the padding -> resize
     to the work size [-> resize to the frame] is linear per axis, so it
-    collapses into one (out_h, h) x (K, h, w) x (w, out_w) product."""
+    collapses into one (out_h, h) x (K, h, w) x (w, out_w) product.
+    direct (SAM 2): resize(256 -> the work size) [-> the frame]."""
     K, h, w = logits.shape
     dev = logits.device
     S = 4 * h
 
     def chain(src, eff, mid, out):
+        if direct:
+            m = resize_matrix(src, mid or out, dev)
+            return m if mid is None else resize_matrix(mid, out, dev) @ m
         m = resize_matrix(src, S, dev)[:eff]
         if mid is not None:
             m = resize_matrix(eff, mid, dev) @ m

@@ -10,6 +10,17 @@ until the single pixel shuffle at the end of `tail`.  Each two-way block
 ends in `ops/two_way.two_way_keys` (K9 on the card): its image-to-token
 attention, `norm4` and the next token-to-image attention's key and value
 projections, which that attention then takes as they are.
+
+SAM 2's decoder (sam2/modeling/sam/mask_decoder.py :15) is this one with
+three construction options: `pred_obj_scores` puts an object-score token
+ahead of the IoU and mask tokens (it takes part in every attention; its
+head, `pred_obj_score_head`, is built for the checkpoint and left
+unevaluated, as SAM2ImagePredictor discards its output), `iou_sigmoid`
+ends the IoU head in a sigmoid, and `high_res` adds one image's
+high-resolution features in the upscaling tail, conv_s1's before the
+LayerNorm and conv_s0's before the second GELU (`tail`'s `res`).  The
+1 x 1 convolutions `conv_s0` / `conv_s1` live here, as in the checkpoint,
+and run once an image (`sam2/model.py`).
 """
 
 from __future__ import annotations
@@ -197,10 +208,14 @@ class TwoWayTransformer(nn.Module):
 class MaskDecoder(nn.Module):
     def __init__(self, embed_dim: int = 256, num_multimask_outputs: int = 3,
                  iou_head_depth: int = 3, iou_head_hidden_dim: int = 256,
-                 dtype=torch.float32):
+                 dtype=torch.float32, pred_obj_scores: bool = False,
+                 iou_sigmoid: bool = False, high_res: bool = False):
         super().__init__()
         T = num_multimask_outputs + 1
         c4, c8 = embed_dim // 4, embed_dim // 8
+        if pred_obj_scores:
+            self.obj_score_token = nn.Parameter(torch.zeros(1, embed_dim))
+            self.pred_obj_score_head = MLP(embed_dim, embed_dim, 1, 3, dtype)
         self.iou_token = nn.Parameter(torch.zeros(1, embed_dim))
         self.mask_tokens = nn.Parameter(torch.zeros(T, embed_dim))
         self.transformer = TwoWayTransformer(embed_dim=embed_dim, dtype=dtype)
@@ -212,35 +227,54 @@ class MaskDecoder(nn.Module):
                             MLP(embed_dim, embed_dim, c8, 3, dtype))
         self.iou_prediction_head = MLP(embed_dim, iou_head_hidden_dim, T,
                                        iou_head_depth, dtype)
+        if high_res:
+            self.conv_s0 = Dense(embed_dim, c8, dtype=dtype)
+            self.conv_s1 = Dense(embed_dim, c4, dtype=dtype)
         self.embed_dim = embed_dim
         self.num_tokens = T
+        self.pred_obj_scores = pred_obj_scores
+        self.iou_sigmoid = iou_sigmoid
 
     def transformer_forward(self, image_embeddings, image_pe, sparse_prompt,
                             dense_prompt):
         """Everything up to the upscaling tail: keys (B, h*w, C) per-prompt
-        image features, hyper (B, T, C/8), iou_pred (B, T)."""
+        image features, hyper (B, T, C/8), iou_pred (B, T) (of the mask
+        tokens; an object-score token's output is not read)."""
         B = sparse_prompt.shape[0]
         T = self.num_tokens
-        output_tokens = torch.cat([self.iou_token, self.mask_tokens], dim=0)
+        heads = [self.iou_token, self.mask_tokens]
+        if self.pred_obj_scores:
+            heads.insert(0, self.obj_score_token)
+        s = int(self.pred_obj_scores)  # the IoU token's place
+        output_tokens = torch.cat(heads, dim=0)
         tokens = torch.cat([output_tokens[None].expand(B, -1, -1),
                             sparse_prompt], dim=1)
         src = image_embeddings + dense_prompt
         hs, keys = self.transformer(src, image_pe, tokens)
         hyper = torch.stack([
-            getattr(self, f"output_hypernetworks_mlps_{i}")(hs[:, 1 + i])
+            getattr(self, f"output_hypernetworks_mlps_{i}")(hs[:, s + 1 + i])
             for i in range(T)], dim=1)
-        iou_pred = self.iou_prediction_head(hs[:, 0])
+        iou_pred = self.iou_prediction_head(hs[:, s])
+        if self.iou_sigmoid:
+            iou_pred = torch.sigmoid(iou_pred)
         return keys, hyper, iou_pred
 
-    def tail(self, keys, hyper, h: int, w: int):
+    def tail(self, keys, hyper, h: int, w: int, res=None):
         """Upscaling tail + hypernetwork contraction: keys (B, h*w, C),
-        hyper (B, T, C/8) -> (B, T, 4h, 4w) mask logits."""
+        hyper (B, T, C/8) -> (B, T, 4h, 4w) mask logits.  res: SAM 2's
+        (res1 (h*w, 4 * C/4), res0 (h*w, 4, 4 * C/8)), one image's
+        high-resolution features in the key rows' layout (`high_res`)."""
         B, N, _ = keys.shape
         T = hyper.shape[1]
         c4, c8 = self.embed_dim // 4, self.embed_dim // 8
         x = self.output_upscaling_0(keys)  # (B, N, 4 * c4), nest (a, d, c)
+        if res is not None:
+            x = x + res[0]
         x = F.gelu(self.output_upscaling_1(x.reshape(B, N, 4, c4)))
-        x = F.gelu(self.output_upscaling_3(x))  # (B, N, 4, 4 * c8)
+        x = self.output_upscaling_3(x)  # (B, N, 4, 4 * c8)
+        if res is not None:
+            x = x + res[1]
+        x = F.gelu(x)
         blocks = x.reshape(B, N, 16, c8)  # j = (a, d, e, f)
         masks = torch.einsum("btc,bqjc->btqj", hyper, blocks)
         # output pixel (4y + 2a + e, 4x + 2d + f)

@@ -105,10 +105,11 @@ class SAM(nn.Module):
         pe, sparse, dense = self._prompt_inputs(points)
         return self.decoder.transformer_forward(embedding, pe, sparse, dense)
 
-    def decode_tail(self, keys, hyper, h: int, w: int):
+    def decode_tail(self, keys, hyper, h: int, w: int, embedding=None):
         """Mask logits of a candidate set: keys (K, N, 256), hyper
-        (K, T, 32) -> (K, T, 4h, 4w)."""
+        (K, T, 32) -> (K, T, 4h, 4w).  The embedding is not read (SAM 2's
+        tail reads its image's features, `sam2/model.py`)."""
         return self.decoder.tail(keys, hyper, h, w)
 
-    def decoder_tail_params(self) -> dict:
+    def decoder_tail_params(self, embedding=None) -> dict:
         return self.decoder.tail_kernel_params()

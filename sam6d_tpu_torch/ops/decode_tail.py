@@ -11,8 +11,12 @@ needs come out, (P, 8, 12) float32:
   rows 2..5: xmin, ymin, xmax, ymax over logit > thr (+-1e9 when empty)
   row 6: count(logit > thr)          row 7: 0
 
-columns (e, f, t) = e * 6 + f * 3 + t.  The GELU is the sigmoid form
-x * sigmoid(1.702 x) of the TPU kernel; the kept candidates' logits are
+columns (e, f, t) = e * 6 + f * 3 + t.  SAM 2's decoder adds one
+image's high-resolution features in the tail (`res1` before the
+LayerNorm, `res0` before the second GELU; `MaskDecoder.tail`), which
+every form takes optionally, in the key rows' layout and the keys'
+dtype.  The GELU is the sigmoid form x * sigmoid(1.702 x) of the TPU
+kernel; the kept candidates' logits are
 recomputed with the exact-erf tail afterwards (`models/ism/sam/amg.py`).
 
 `decode_tail_stats` launches `csrc/decode_tail.cu` for tensors on the
@@ -30,6 +34,7 @@ import ctypes
 import torch
 
 from sam6d_tpu_torch.ops._kernels import Kernel, check_cuda, current_stream, ptr
+from sam6d_tpu_torch.utils.timer import count
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,7 +42,7 @@ _F = ctypes.c_float
 KERNEL = Kernel(
     "decode_tail_stats", "decode_tail.cu",
     replaces="sam6d_tpu/ops/pallas/decode_tail.py:171",
-    signatures={"decode_tail_stats": [_V] * 10 + [_I, _I, _I, _F, _F, _F,
+    signatures={"decode_tail_stats": [_V] * 12 + [_I, _I, _I, _F, _F, _F,
                                                   _I, _V]},
 )
 
@@ -75,18 +80,25 @@ def _side(N: int) -> int:
 def decode_tail_stats_plain(keys, hyper, w1, b1, ln_scale, ln_bias, w2, b2,
                             *, mask_threshold: float = 0.0,
                             stability_offset: float = 1.0,
-                            ln_eps: float = 1e-6) -> torch.Tensor:
-    """The reference arithmetic (float32, materialized), (P, 8, 12)."""
+                            ln_eps: float = 1e-6, res1=None,
+                            res0=None) -> torch.Tensor:
+    """The reference arithmetic (float32, materialized), (P, 8, 12);
+    res1 (N, 256) and res0 (N, 512): SAM 2's high-resolution features in
+    the key rows' layout, added after each stage's bias."""
     P, N, _ = keys.shape
     side = _side(N)
     dev = keys.device
     h1 = keys.float() @ w1.float() + b1.float()
+    if res1 is not None:
+        h1 = h1 + res1.float()
     h1 = h1.reshape(P, N, 4, 64)
     mu = h1.mean(-1, keepdim=True)
     var = ((h1 - mu) ** 2).mean(-1, keepdim=True)
     xn = ((h1 - mu) / torch.sqrt(var + ln_eps)).reshape(P, N, 256)
     g = _gelu_sigmoid(xn * ln_scale.float() + ln_bias.float())
     y2 = g.reshape(P, N, 4, 64) @ w2.float() + b2.float()
+    if res0 is not None:
+        y2 = y2 + res0.float().reshape(N, 4, 128)
     y2 = _gelu_sigmoid(y2).reshape(P, N, 4, 4, 32)  # (a d), (e f), c8
     m = torch.einsum("pnjkc,ptc->ptnjk", y2, hyper.float())
     n = torch.arange(N, device=dev)
@@ -116,7 +128,8 @@ def decode_tail_stats_plain(keys, hyper, w1, b1, ln_scale, ln_bias, w2, b2,
 def decode_tail_stats_cuda(keys, hyper, w1, b1, ln_scale, ln_bias, w2, b2,
                            *, mask_threshold: float = 0.0,
                            stability_offset: float = 1.0,
-                           ln_eps: float = 1e-6) -> torch.Tensor:
+                           ln_eps: float = 1e-6, res1=None,
+                           res0=None) -> torch.Tensor:
     if keys.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"decode_tail_stats: unsupported dtype {keys.dtype}")
     check_cuda(keys, "keys", keys.dtype, ndim=3)
@@ -137,9 +150,17 @@ def decode_tail_stats_cuda(keys, hyper, w1, b1, ln_scale, ln_bias, w2, b2,
                              f"!= {shapes[name]}")
     if keys.data_ptr() % 16:
         raise ValueError("decode_tail_stats: keys must be 16-byte aligned")
+    if (res1 is None) != (res0 is None):
+        raise ValueError("decode_tail_stats: res1 and res0 come together")
+    if res1 is not None:
+        for name, t, c in (("res1", res1, 256), ("res0", res0, 512)):
+            check_cuda(t, name, keys.dtype, ndim=2)
+            if tuple(t.shape) != (N, c):
+                raise ValueError(f"decode_tail_stats: {name} "
+                                 f"{tuple(t.shape)} != {(N, c)}")
     bufs = prepare(keys, w1, w2)
     launch(keys, hyper, b1, ln_scale, ln_bias, b2, *bufs,
-           mask_threshold, stability_offset, ln_eps)
+           mask_threshold, stability_offset, ln_eps, res1, res0)
     return bufs[-1]
 
 
@@ -155,13 +176,16 @@ def prepare(keys, w1, w2):
 
 
 def launch(keys, hyper, b1, ln_scale, ln_bias, b2, w1s, w2s, partial, stats,
-           mask_threshold, stability_offset, ln_eps) -> None:
-    """One launch on checked, prepared operands (`prepare`)."""
+           mask_threshold, stability_offset, ln_eps, res1=None,
+           res0=None) -> None:
+    """One launch on checked, prepared operands (`prepare`); res1 and res0
+    None for SAM's tail."""
     P, N, _ = keys.shape
     KERNEL.launches += 1
     KERNEL.call("decode_tail_stats", ptr(keys), ptr(hyper), ptr(w1s), ptr(b1),
-                ptr(ln_scale), ptr(ln_bias), ptr(w2s), ptr(b2), ptr(partial),
-                ptr(stats), P, N, _side(N), float(mask_threshold),
+                ptr(ln_scale), ptr(ln_bias), ptr(w2s), ptr(b2), ptr(res1),
+                ptr(res0), ptr(partial), ptr(stats), P, N, _side(N),
+                float(mask_threshold),
                 float(stability_offset), float(ln_eps),
                 int(keys.dtype == torch.bfloat16), current_stream(keys.device))
 
@@ -169,15 +193,21 @@ def launch(keys, hyper, b1, ln_scale, ln_bias, b2, w1s, w2s, partial, stats,
 def decode_tail_stats(keys, hyper, w1, b1, ln_scale, ln_bias, w2, b2, *,
                       mask_threshold: float = 0.0,
                       stability_offset: float = 1.0,
-                      ln_eps: float = 1e-6) -> torch.Tensor:
+                      ln_eps: float = 1e-6, res1=None,
+                      res0=None) -> torch.Tensor:
     """keys (P, N, 256) with N = side^2; hyper (P, 3, 32); the tail's
-    weights in the kernel layout (`MaskDecoder.tail_kernel_params`).
-    Returns (P, 8, 12) float32 statistics."""
+    weights in the kernel layout (`MaskDecoder.tail_kernel_params`), with
+    SAM 2's per-image residuals res1 (N, 256) and res0 (N, 512) in the
+    keys' dtype where the decoder has them.  Returns (P, 8, 12) float32
+    statistics."""
     fn = (decode_tail_stats_plain if keys.device.type == "cpu"
           else decode_tail_stats_cuda)
+    if res1 is not None:  # P x N key rows of the residual form
+        count("sam2.tail_residual_rows", keys.shape[0] * keys.shape[1])
     return fn(keys, hyper, w1, b1, ln_scale, ln_bias, w2, b2,
               mask_threshold=mask_threshold,
-              stability_offset=stability_offset, ln_eps=ln_eps)
+              stability_offset=stability_offset, ln_eps=ln_eps, res1=res1,
+              res0=res0)
 
 
 def fold_stats(stats: torch.Tensor, upscale: float):

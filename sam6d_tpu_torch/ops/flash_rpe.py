@@ -7,7 +7,11 @@ Counterpart of `sam6d_tpu/ops/pallas/flash_rpe.py`:
   bias) v with the decomposed relative-position bias of
   segment_anything's add_decomposed_rel_pos;
 * `flash_attention` (K5, replaces `flash_attention`, `:229`; the DINOv2
-  descriptor ViT's attention): softmax(q k^T / sqrt(d)) v.
+  descriptor ViT's attention and every block of SAM 2's Hiera):
+  softmax(q k^T / sqrt(d)) v, with Nq <= Nk query rows (Hiera's pooled
+  queries against the keys of their unpooled window) and head width 72
+  besides K4's (Hiera's heads; the kernel pads it to 80 in shared memory
+  only).
 
 Both launch the CUDA kernel `csrc/flash_rpe.cu` for tensors on the card
 (one launch a call: the K4 kernel takes the raw (2h - 1, d) / (2w - 1, d)
@@ -49,7 +53,7 @@ KERNEL_RPE = Kernel(
     "flash_rpe_attention", "flash_rpe.cu",
     replaces="sam6d_tpu/ops/pallas/flash_rpe.py:92",
     signatures={"flash_attn_fwd": [_V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I,
-                                   _I, _V]},
+                                   _I, _I, _V]},
 )
 # K5 shares K4's source and library; it keeps its own launch count.
 KERNEL_PLAIN = Kernel(
@@ -58,7 +62,8 @@ KERNEL_PLAIN = Kernel(
     signatures=KERNEL_RPE.signatures,
 )
 
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)  # K4's
+HEAD_DIMS_K5 = HEAD_DIMS + (72,)  # and Hiera's heads
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID = 64
 
@@ -94,34 +99,44 @@ def rpe_attention_plain(q, k, v, rel_pos_h, rel_pos_w, hw):
 
 
 def attention_plain(q, k, v):
-    """softmax(q k^T / sqrt(d)) v, materialized, float32 logits."""
+    """softmax(q k^T / sqrt(d)) v, materialized, float32 logits; q (BH,
+    Nq, d) against k, v (BH, Nk, d)."""
     d = q.shape[-1]
     attn = (q.float() @ k.float().transpose(1, 2)) / math.sqrt(d)
     return torch.softmax(attn, dim=-1).to(q.dtype) @ v
 
 
-def _check_qkv(q, k, v):
-    s = q.shape
+def _check_qkv(q, k, v, dims=HEAD_DIMS, same_n=True):
+    """q (BH, Nq, d), k and v (BH, Nk, d): Nq == Nk where `same_n`, else
+    1 <= Nq <= Nk; d in `dims`."""
+    s, t = q.shape, k.shape
     # The common case as one expression: at the small shapes a call's host
     # time is most of its time.  A miss goes through the checks below,
     # which say what is wrong.
     if (q.is_cuda and k.is_cuda and v.is_cuda and q.dtype in _DTYPES
             and k.dtype == q.dtype and v.dtype == q.dtype and len(s) == 3
-            and k.shape == s and v.shape == s and s[2] in HEAD_DIMS
+            and len(t) == 3 and v.shape == t and t[0] == s[0]
+            and t[2] == s[2] and (t[1] == s[1] if same_n
+                                  else 0 < s[1] <= t[1])
+            and s[2] in dims
             and q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
             and not (q.data_ptr() | k.data_ptr() | v.data_ptr()) & 15):
         return
     dtype = q.dtype
     if dtype not in _DTYPES:
         raise ValueError(f"flash attention: unsupported dtype {dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_cuda(t, name, dtype, ndim=3)
-    if k.shape != q.shape or v.shape != q.shape:
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        check_cuda(x, name, dtype, ndim=3)
+    if (v.shape != k.shape or k.shape[0] != q.shape[0]
+            or k.shape[2] != q.shape[2]
+            or (k.shape[1] != q.shape[1] if same_n
+                else not 0 < q.shape[1] <= k.shape[1])):
         raise ValueError(f"flash attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} differ")
-    if q.shape[-1] not in HEAD_DIMS:
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit "
+                         f"({'Nq == Nk' if same_n else '1 <= Nq <= Nk'})")
+    if q.shape[-1] not in dims:
         raise ValueError(f"flash attention: head dim {q.shape[-1]} not in "
-                         f"{HEAD_DIMS}")
+                         f"{dims}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash attention: q, k, v must be 16-byte aligned")
 
@@ -129,11 +144,12 @@ def _check_qkv(q, k, v):
 def launch(kernel, q, k, v, rel_pos_h, rel_pos_w, hw, out):
     """One launch of the kernel on inputs the wrapper has checked, into
     `out` (q's shape and dtype); rel_pos_h / rel_pos_w None for K5."""
-    BH, N, d = q.shape
+    BH, Nq, d = q.shape
     kernel.launches += 1
     kernel.call("flash_attn_fwd", ptr(q), ptr(k), ptr(v), ptr(rel_pos_h),
-                ptr(rel_pos_w), ptr(out), BH, N, d, hw[0], hw[1],
-                int(q.dtype == torch.bfloat16), current_stream(q.device))
+                ptr(rel_pos_w), ptr(out), BH, Nq, k.shape[1], d, hw[0],
+                hw[1], int(q.dtype == torch.bfloat16),
+                current_stream(q.device))
     return out
 
 
@@ -172,7 +188,7 @@ def flash_rpe_attention_cuda(q, k, v, rel_pos_h, rel_pos_w, hw):
 
 def flash_attention_cuda(q, k, v):
     _forward_only("flash_attention", q, k, v)
-    _check_qkv(q, k, v)
+    _check_qkv(q, k, v, HEAD_DIMS_K5, same_n=False)
     return launch(KERNEL_PLAIN, q, k, v, None, None, (0, 0),
                   torch.empty_like(q))
 
@@ -187,7 +203,8 @@ def flash_rpe_attention(q, k, v, rel_pos_h, rel_pos_w, hw):
 
 
 def flash_attention(q, k, v):
-    """q, k, v (BH, N, d) -> (BH, N, d) in q's dtype."""
+    """q (BH, Nq, d), k and v (BH, Nk, d) with Nq <= Nk -> (BH, Nq, d) in
+    q's dtype."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     return flash_attention_cuda(q, k, v)

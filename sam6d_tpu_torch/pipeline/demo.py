@@ -12,8 +12,11 @@ Usage:
       --cam_path camera.json --output_dir out [--stages render,ism,pem] \\
       [--device cuda|cpu]
 
-The ISM's segmentor is SAM's automatic mask generator, or FastSAM with
-`--segmentor_model fastsam` (`cfg.fastsam`: FastSAM-x at 640 px).
+The ISM's segmentor is SAM's automatic mask generator, SAM 2.1 Hiera-L
+under the same generator with `--segmentor_model sam2` (its
+`SegmentorConfig.model_type` "sam2.1_hiera_l", `models/ism/sam2/`), or
+FastSAM with `--segmentor_model fastsam` (`cfg.fastsam`: FastSAM-x at
+640 px).
 Weights are drawn at random from fixed seeds unless `--sam_params`,
 `--fastsam_params`, `--dinov2_params` or `--pem_params` give the port's
 `.npz` state dicts: `python -m sam6d_tpu_torch.convert_weights` writes
@@ -27,6 +30,7 @@ float32, the PEM in float32, as in the JAX demo.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -37,7 +41,10 @@ from sam6d_tpu_torch.config import default_ism_config, default_pem_config
 from sam6d_tpu_torch.device import resolve_device
 from sam6d_tpu_torch.models.ism.fastsam import FastSAM
 from sam6d_tpu_torch.models.ism.sam.model import SAM
+from sam6d_tpu_torch.models.ism.sam2.model import SAM2
 from sam6d_tpu_torch.utils.timer import StageTimer
+
+SAM2_MODEL = "sam2.1_hiera_l"
 
 
 def run_render(args, timer: StageTimer):
@@ -80,12 +87,17 @@ def run_ism(args, timer: StageTimer):
             if args.fastsam_params:
                 restore_params(args.fastsam_params, segmentor.net)
         else:
-            sam = SAM(cfg.segmentor.model_type, dtype=dtype, device=dev)
+            seg = cfg.segmentor
+            if args.segmentor_model == "sam2":
+                seg = dataclasses.replace(seg, model_type=SAM2_MODEL)
+                sam = SAM2(seg.model_type, dtype=dtype, device=dev)
+            else:
+                sam = SAM(seg.model_type, dtype=dtype, device=dev)
             init_random_(sam, torch.Generator().manual_seed(0))
             if args.sam_params:
                 restore_params_tolerant(args.sam_params, sam)
             segmentor = SamAutomaticMaskGenerator(
-                cast_dense_weights(sam.eval()), cfg.segmentor)
+                cast_dense_weights(sam.eval()), seg)
         descriptor = DescriptorModel(cfg.descriptor, dtype=dtype).to(dev)
         init_random_(descriptor, torch.Generator().manual_seed(1))
         if args.dinov2_params:
@@ -162,7 +174,7 @@ def main(argv=None) -> dict:
     p.add_argument("--output_dir", required=True)
     p.add_argument("--stages", default="render,ism,pem")
     p.add_argument("--segmentor_model", default="sam",
-                   choices=["sam", "fastsam"])
+                   choices=["sam", "sam2", "fastsam"])
     p.add_argument("--fastsam_params", default="",
                    help=".npz state dict of FastSAM (convert_weights "
                         "--kind fastsam), loaded strictly")
@@ -170,7 +182,9 @@ def main(argv=None) -> dict:
                    help=".npz state dict of the PEM (convert_weights "
                         "--kind pem)")
     p.add_argument("--sam_params", default="",
-                   help=".npz state dict of SAM (convert_weights --kind sam)")
+                   help=".npz state dict of SAM (convert_weights --kind "
+                        "sam), or of SAM 2 in the port's layout with "
+                        "--segmentor_model sam2")
     p.add_argument("--dinov2_params", default="",
                    help=".npz state dict of the DINOv2 ViT (convert_weights "
                         "--kind dinov2)")

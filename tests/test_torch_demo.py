@@ -16,6 +16,9 @@
   weights that the converter's CLI wrote from an ultralytics-layout
   checkpoint; FastSAM against the JAX package: test_torch_fastsam.py.
   Weights that do not fit FastSAM are refused (its load is strict).
+* The same with `--segmentor_model sam2` (SAM 2 with a tiny Hiera at
+  128 px, the frame stretched to it) on the demo's seeded weights; SAM 2
+  against the benchmark's reference: test_torch_sam2.py.
 """
 
 import dataclasses
@@ -47,6 +50,7 @@ from sam6d_tpu_torch.models.ism.onboarding import onboard_objects as t_onboard
 from sam6d_tpu_torch.models.ism.sam.amg import SamAutomaticMaskGenerator as TAMG
 from sam6d_tpu_torch.models.ism.fastsam import FastSAM as TFastSAM
 from sam6d_tpu_torch.models.ism.sam.model import SAM as TSAM
+from sam6d_tpu_torch.models.ism.sam2.model import SAM2 as TSAM2
 from sam6d_tpu_torch.models.pem.model import PEM as TPEM
 from sam6d_tpu_torch.params import flax_to_state_dict, sam_state_dict, save_npz
 from sam6d_tpu_torch.pipeline import demo
@@ -67,6 +71,7 @@ from tests.test_torch_ism import (
     seg_kwargs,
 )
 from tests.test_torch_pem import tiny_config
+from tests.test_torch_sam2 import TINY as TINY_HIERA
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "helpers"))
 from reference_checkpoints import checkpoint, reference_state_dict  # noqa: E402
@@ -248,6 +253,47 @@ def test_demo_main_with_fastsam_on_the_cpu(scene, tmp_path, monkeypatch):
     assert len(pem) >= 1
     R = np.array(pem[0]["R"]).reshape(3, 3)
     assert abs(np.linalg.det(R) - 1.0) < 1e-2
+
+
+def test_demo_main_with_sam2_on_the_cpu(scene, tmp_path, monkeypatch):
+    monkeypatch.setattr(demo, "default_ism_config", tiny_ism_config)
+    monkeypatch.setattr(demo, "default_pem_config",
+                        lambda: dataclasses.replace(
+                            tiny_config(tc), n_sample_template_point=500))
+    monkeypatch.setattr(demo, "SAM2", functools.partial(
+        TSAM2, img_size=128, trunk_kwargs=TINY_HIERA))
+    models, proposals = [], []
+    generate = TAMG.generate_masks
+
+    def spy(self, *a, **k):
+        models.append((type(self.sam), self.cfg.model_type))
+        proposals.append(generate(self, *a, **k))
+        return proposals[-1]
+
+    monkeypatch.setattr(TAMG, "generate_masks", spy)
+    d, out = scene["dir"], tmp_path / "out"
+    shutil.copytree(scene["tdir"], out / "templates")  # the render stage's
+    args = ["--cad_path", scene["cad"], "--rgb_path", str(d / "rgb.png"),
+            "--depth_path", str(d / "depth.png"),
+            "--cam_path", str(d / "camera.json"), "--output_dir", str(out),
+            "--template_size", "96", "--det_score_thresh", "-1",
+            "--segmentor_model", "sam2", "--device", "cpu"]
+    report = demo.main(args + ["--stages", "ism,pem"])
+    assert list(report) == [
+        "ism_model_init", "ism_onboarding", "ism_detect", "ism_serialize",
+        "pem_model_init", "pem_onboarding", "pem_forward", "pem_serialize"]
+    assert models == [(TSAM2, "sam2.1_hiera_l")]
+    (got,) = proposals
+    n = len(got["masks"])
+    assert n > 0 and got["masks"].shape == (n, 480, 640)
+    b = got["boxes"]
+    assert np.isfinite(b).all() and (b >= 0).all()
+    assert (b[:, 0::2] <= 639).all() and (b[:, 1::2] <= 479).all()
+    ism = json.loads((out / "detection_ism.json").read_text())
+    assert ism and all(0.0 <= r["score"] <= 1.0 for r in ism)
+    assert all(r["segmentation"]["size"] == [480, 640] for r in ism)
+    pem = json.loads((out / "detection_pem.json").read_text())
+    assert len(pem) >= 1
 
 
 def test_demo_refuses_fastsam(scene, tmp_path):

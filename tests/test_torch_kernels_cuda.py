@@ -309,6 +309,71 @@ def test_flash_attention_kernel_matches_plain(dev, route, dtype, BH, N, d):
     _assert_attention_close(got.float(), want, dtype)
 
 
+def _qkv_pooled(dev, BH, Nq, Nk, d, dtype, seed=0):
+    # Unit-scale q and k, as `_qkv`; q with its own (pooled) rows.
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(BH, Nq, d, generator=g, device=dev)
+    k, v = (torch.randn(BH, Nk, d, generator=g, device=dev)
+            for _ in range(2))
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+# Hiera-L's K5 calls at 1024 px, head width 72 (padded to 80 inside the
+# kernel): the windows of stages 1-4 (64, 16, 256, 64 tokens), the
+# global blocks of stage 3 (4096 tokens: two query tiles a warp in
+# bf16), and the pooling blocks 2, 8 and 44 (16 queries on 64 keys, 4 on
+# 16, 64 on 256); then ragged ones (Nq and Nk no multiple of a tile) at
+# 72 and, with Nq < Nk, at 64.
+HIERA_K5 = [(2048, 64, 64), (4096, 16, 16), (128, 256, 256), (256, 64, 64),
+            (8, 4096, 4096), (4096, 16, 64), (8192, 4, 16), (256, 64, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,Nq,Nk", HIERA_K5)
+def test_flash_attention_at_hieras_shapes(dev, dtype, BH, Nq, Nk):
+    q, k, v = _qkv_pooled(dev, BH, Nq, Nk, 72, dtype)
+    launches = fr.KERNEL_PLAIN.launches
+    got = fr.flash_attention(q, k, v)
+    want = fr.attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    assert fr.KERNEL_PLAIN.launches == launches + 1
+    assert got.shape == (BH, Nq, 72) and got.dtype == dtype
+    _assert_attention_close(got.float(), want, dtype)
+
+
+@pytest.mark.parametrize("route", ["wrapper", "launch"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,Nq,Nk,d", [(3, 37, 300, 72), (2, 1100, 1300, 72),
+                                        (5, 9, 9, 72), (4, 100, 257, 64)])
+def test_flash_attention_with_fewer_queries_matches_plain(dev, route, dtype,
+                                                          BH, Nq, Nk, d):
+    q, k, v = _qkv_pooled(dev, BH, Nq, Nk, d, dtype, seed=3)
+    want = fr.attention_plain(q, k, v).float()
+    if route == "wrapper":
+        got = fr.flash_attention_cuda(q, k, v)
+    else:
+        got = fr.launch(fr.KERNEL_PLAIN, q, k, v, None, None, (0, 0),
+                        torch.empty_like(q))
+    torch.cuda.synchronize()
+    _assert_attention_close(got.float(), want, dtype)
+
+
+def test_flash_attention_refuses_what_k5_does_not_take(dev):
+    q, k, v = _qkv_pooled(dev, 2, 70, 64, 72, torch.bfloat16)
+    with pytest.raises(ValueError):  # more queries than keys
+        fr.flash_attention_cuda(q, k, v)
+    q, k, v = _qkv_pooled(dev, 2, 16, 64, 72, torch.bfloat16)
+    with pytest.raises(ValueError):  # v's rows not k's
+        fr.flash_attention_cuda(q, k, v[:, :32].contiguous())
+    with pytest.raises(ValueError):  # K4 has no width-72 instance
+        fr.flash_rpe_attention_cuda(
+            *_qkv(dev, 2, 64, 72, torch.bfloat16),
+            *_tables(dev, 8, 8, 72, torch.bfloat16), (8, 8))
+    with pytest.raises(ValueError):  # K4 takes Nq = Nk only
+        fr.flash_rpe_attention_cuda(
+            q, k, v, *_tables(dev, 8, 8, 72, torch.bfloat16), (8, 8))
+
+
 def test_flash_attention_survives_large_logits(dev):
     q, k, v = _qkv(dev, 2, 200, 64, torch.float32, scale=0.3)
     got = fr.flash_attention_cuda(q * 40.0, k, v)
@@ -390,6 +455,48 @@ def test_decode_tail_kernel_matches_plain(dev, dtype, P, N):
     for rows, atol in (((0, 1, 6), 8.0), ((2, 3, 4, 5), 4.0), ((7,), 0.0)):
         torch.testing.assert_close(got[:, list(rows)], want[:, list(rows)],
                                    atol=atol, rtol=0)
+
+
+def _residuals(dev, N, dtype, seed=1):
+    # In the keys' dtype, as the kernel takes them.
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return dict(res1=(torch.randn(N, 256, generator=g, device=dev)
+                      * 0.3).to(dtype),
+                res0=(torch.randn(N, 512, generator=g, device=dev)
+                      * 0.3).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,N", [(3, 256), (2, 100), (4, 4096), (5, 64)])
+def test_decode_tail_kernel_with_residuals_matches_plain(dev, dtype, P, N):
+    # SAM 2's form: one image's res1 / res0 added after each stage's bias,
+    # read by every prompt.  The tolerances of the form without them.
+    inp = _tail_inputs(dev, P, N, dtype)
+    res = _residuals(dev, N, dtype)
+    kw = dict(mask_threshold=0.0, stability_offset=0.3, **res)
+    got = dt.decode_tail_stats_cuda(**inp, **kw)
+    want = dt.decode_tail_stats_plain(**inp, **kw)
+    bare = dt.decode_tail_stats_plain(**inp, mask_threshold=0.0,
+                                      stability_offset=0.3)
+    torch.cuda.synchronize()
+    for rows, atol in (((0, 1, 6), 8.0), ((2, 3, 4, 5), 4.0), ((7,), 0.0)):
+        torch.testing.assert_close(got[:, list(rows)], want[:, list(rows)],
+                                   atol=atol, rtol=0)
+    # The residuals move the statistics (they are read at all).
+    assert (want[:, 6] != bare[:, 6]).any()
+
+
+def test_decode_tail_refuses_residuals_it_does_not_take(dev):
+    inp = _tail_inputs(dev, 2, 256, torch.bfloat16)
+    res = _residuals(dev, 256, torch.bfloat16)
+    for bad in ({"res1": res["res1"]}, {"res0": res["res0"]},
+                {"res1": res["res1"][:128].contiguous(),
+                 "res0": res["res0"][:128].contiguous()},
+                {"res1": res["res1"].float(), "res0": res["res0"]},
+                {"res1": res["res1"], "res0": res["res0"].reshape(
+                    256, 4, 128)}):
+        with pytest.raises(ValueError):
+            dt.decode_tail_stats_cuda(**inp, **bad)
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -618,6 +725,55 @@ def test_tiny_fastsam_on_the_card_matches_the_cpu(dev):
     from chip_smoke import check_tiny_fastsam
 
     assert check_tiny_fastsam(dev)["proposals"] > 3
+
+
+TINY_HIERA = dict(embed_dim=16, num_heads=1, stages=(1, 2, 2, 1),
+                  global_att_blocks=(4,), window_spec=(4, 2, 4, 2))
+
+
+@torch.no_grad()
+def test_tiny_sam2_on_the_card_matches_the_cpu(dev):
+    """SAM 2 with a tiny Hiera at 128 px, float32: the encoding within
+    1e-4 (relative) of the CPU's (summation order; every block's K5 on
+    the card, none plain), and the generator's fused route on the card
+    (K9 at T = 8, K6 with the residuals) gives masks and boxes of the
+    frame's size."""
+    from sam6d_tpu_torch.config import SegmentorConfig
+    from sam6d_tpu_torch.models.ism.sam.amg import SamAutomaticMaskGenerator
+    from sam6d_tpu_torch.models.ism.sam2.model import SAM2
+    from sam6d_tpu_torch.ops import decode_tail as dtail
+    from sam6d_tpu_torch.ops import two_way as tw
+    from sam6d_tpu_torch.utils import timer
+
+    cpu = SAM2(img_size=128, trunk_kwargs=TINY_HIERA, device="cpu")
+    init_random_(cpu, torch.Generator().manual_seed(4))
+    card = SAM2(img_size=128, trunk_kwargs=TINY_HIERA, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(5)
+    image = torch.from_numpy((rng.rand(96, 128, 3) * 255).astype(np.uint8))
+    feats = []
+    for m in (cpu, card):
+        x, _, _ = m.preprocess(image.to(m.device))
+        with timer.recording() as rec:
+            feats.append(m.encode(x[None]))
+        rows = {n: 0 for n in ("window", "pooled", "global", "plain")}
+        for name, n, _, _ in rec.counts:
+            rows[name.rsplit("_", 1)[-1]] += n
+        assert (rows["plain"] == 0) == (m is card), rows
+    for c, g in zip(feats[0][:3], feats[1][:3]):
+        assert float((g.cpu() - c).norm() / c.norm()) < 1e-4
+    seg = SegmentorConfig(model_type="sam2.1_hiera_l", points_per_side=4,
+                          points_per_batch=8, pred_iou_thresh=-1e9,
+                          stability_score_thresh=-1e9,
+                          segmentor_width_size=0)
+    k6, k9 = dtail.KERNEL.launches, tw.KERNEL.launches
+    out = SamAutomaticMaskGenerator(card, seg).generate_masks(
+        image.numpy())
+    assert dtail.KERNEL.launches == k6 + 1 and tw.KERNEL.launches == k9 + 4
+    n = len(out["masks"])
+    assert n > 0 and out["masks"].shape == (n, 96, 128)
+    b = out["boxes"]
+    assert (b[:, 0::2] <= 127).all() and (b[:, 1::2] <= 95).all()
 
 
 def test_device_prefetcher_batches_equal_the_hosts(dev):
@@ -934,10 +1090,12 @@ def test_procrustes_refuses_a_gradient(dev):
 # batch 64), at tiny SAM's 576 rows, at T = 9 (more than one n-tile of
 # tokens), at T = 33 and 70 (three and five chunks of 16 tokens under the
 # running softmax, 70 past the 64 a build once took) on ragged tiles, and
-# at one prompt.
+# at one prompt; SAM 2's two call forms at T = 8 (its object-score token
+# ahead of SAM's seven).
 TWO_WAY_CASES = [(64, 4096, 7, 1), (64, 4096, 7, 64), (64, 576, 7, 1),
                  (5, 576, 9, 5), (3, 4096, 9, 1), (2, 100, 33, 2),
-                 (2, 100, 70, 2), (3, 576, 70, 1), (1, 64, 7, 1)]
+                 (2, 100, 70, 2), (3, 576, 70, 1), (1, 64, 7, 1),
+                 (64, 4096, 8, 1), (64, 4096, 8, 64)]
 
 
 def _two_way_case(dev, B, N, T, Bk, dtype):
